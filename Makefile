@@ -1,16 +1,16 @@
 # Developer entry points for the cartpole_tpu framework.
 #
-# TPU-native analog of the reference's dual-target CMake + ctest surface
+# The analog of the reference's dual-target CMake + ctest surface
 # (/root/reference/CMakeLists.txt, optimization/CMakeLists.txt:82-93): one
 # place that builds the native oracle, runs the test tiers, the lint wall,
 # the benchmarks, and the codegen pipeline.
 
 PY ?= python
 
-.PHONY: test test-fast test-slow lint bench bench-sweep tpu-gate codegen native clean help
+.PHONY: test test-fast test-slow lint bench bench-sweep smoke codegen native clean help
 
 help:
-	@echo "targets: test test-fast test-slow lint bench bench-sweep tpu-gate codegen native clean"
+	@echo "targets: test test-fast test-slow lint bench bench-sweep smoke codegen native clean"
 
 test:            ## the CI gate: per-file interpreter isolation (~40 min)
 	$(PY) scripts/run_tests.py
@@ -33,8 +33,8 @@ bench:           ## headline benchmark on the attached device (~6 min cold)
 bench-sweep:     ## batch/latency matrix -> bench_sweep.json
 	$(PY) bench.py --sweep
 
-tpu-gate:        ## on-device Pallas regression gate -> tpu_gate.json (~15 min cold)
-	$(PY) scripts/probe_fused_tpu.py --gate
+smoke:           ## closed loop + reference checks on one NVIDIA GPU
+	$(PY) chip_smoke.py
 
 codegen:         ## regenerate the machine-generated dynamics modules
 	$(PY) -m cartpole_tpu.symbolic.generate --version single --jacobians \

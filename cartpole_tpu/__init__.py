@@ -1,4 +1,5 @@
-"""cartpole_tpu — a TPU-native MPC framework for cart-pole swing-up.
+"""cartpole_tpu — a batched, accelerator-compiled MPC framework for
+cart-pole swing-up.
 
 A ground-up JAX/XLA re-design with the capabilities of the reference C++
 stack ``gareth-cross/cart-pole-mpc`` (symbolic-codegen dynamics, RK4

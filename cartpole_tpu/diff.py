@@ -61,19 +61,17 @@ derivatives — ``∇²cost`` (dynamics-free) plus one vmapped ``(sd+spacing)²`
 Hessian per shooting segment, scattered into place — never as a monolithic
 ``jacfwd`` of the stationarity map over the whole window. That exploits
 the multiple-shooting sparsity (O(N·k³) instead of O(n²) second-order AD,
-and small dense per-segment programs are the TPU-friendly shape), and it
+and small dense per-segment programs batch well), and it
 also dodges a measured XLA:CPU miscompile: whole-window second-order
 programs beyond ~8 segments corrupt the heap on this image (glibc abort;
 4-segment windows are fine — the per-segment assembly is immune at any
 window length). The assembled matrix is dense ``n × n`` with
-``n = dim(z) + n_constraints`` (≈115 at reference defaults) — padded to a
-multiple of 16 before ``jnp.linalg.solve`` (TPU batched-LU sizes 83/84/88
-fail to compile; multiples of 16 in [96, 256] are safe — CLAUDE.md).
-Batch with ``jax.vmap`` as usual.
+``n = dim(z) + n_constraints`` (≈115 at reference defaults), solved with
+``jnp.linalg.solve``. Batch with ``jax.vmap`` as usual.
 
 No reference-file citation: the reference has no equivalent (its solver is
-an opaque C++ submodule); this module exists because the TPU-native stack
-is built from pure JAX functions end to end.
+an opaque C++ submodule); this module exists because this stack is built
+from pure JAX functions end to end.
 """
 
 from __future__ import annotations
@@ -83,23 +81,6 @@ import jax.numpy as jnp
 import numpy as np
 
 __all__ = ["make_differentiable_solve"]
-
-
-def _pad_solve(M, rhs):
-    """``jnp.linalg.solve`` padded to a multiple of 16 (identity block on
-    the padding diagonal) — the TPU batched-LU VMEM bug workaround used by
-    ``ops/solver.py``."""
-    n = M.shape[-1]
-    pad = (-n) % 16
-    if pad:
-        dtype = M.dtype
-        M = jnp.block([
-            [M, jnp.zeros((n, pad), dtype)],
-            [jnp.zeros((pad, n), dtype), jnp.eye(pad, dtype=dtype)],
-        ])
-        rhs = jnp.concatenate([rhs, jnp.zeros((pad,), dtype)])
-    sol = jnp.linalg.solve(M, rhs)
-    return sol[:n]
 
 
 def make_differentiable_solve(mpc, bound_tol: float = 1e-6,
@@ -199,11 +180,10 @@ def make_differentiable_solve(mpc, bound_tol: float = 1e-6,
     n_def = n_seg * sd
 
     def bwd(res, w):
-        # TPU f32 matmuls default to bf16 passes (CLAUDE.md); the IFT
-        # assembly (Hessians, the n x n adjoint solve) needs true f32 the
-        # same way the solver's normal equations do — measured on-chip
-        # 2026-08-20: without this scope the f32 ift gradient is O(1)
-        # wrong (cos -0.56 vs FD) while f64/CPU is exact.
+        # Accelerator f32 matmuls may run at reduced precision by default
+        # (TF32 on NVIDIA tensor cores); the IFT assembly (Hessians, the
+        # n x n adjoint solve) needs true f32 the same way the solver's
+        # normal equations do, or the f32 ift gradient is O(1) wrong.
         with jax.default_matmul_precision("float32"):
             return _bwd_impl(res, w)
 
@@ -316,7 +296,7 @@ def make_differentiable_solve(mpc, bound_tol: float = 1e-6,
             [D_a, eye - D_a, jnp.zeros((nz, n_c), dtype)],
         ])
         rhs = jnp.concatenate([wz, jnp.zeros((n_c + nz,), dtype)])
-        lam = _pad_solve(M.T, rhs)
+        lam = jnp.linalg.solve(M.T, rhs)
         phi1 = lam[:nz]                 # E1 adjoint
         phi2 = lam[nz:nz + n_c]         # E2 adjoint (E3 is θ-free)
 

@@ -12,7 +12,7 @@ dynamics-parameter updates (jit arguments — no recompile), optimizer
 rebuild on cost/equality changes (``application.ts:367-373``), and the
 ring-buffer JSON solve log (``application.ts:429-434``).
 
-Run: ``python -m cartpole_tpu interactive`` (add ``--cpu`` off-TPU;
+Run: ``python -m cartpole_tpu interactive`` (add ``--cpu`` to force the CPU;
 ``--model double`` drives the 6-state double pole).
 Keys: b/B poke base left/right, p/P poke first link mass, o/O poke second
 link mass (double pole), c toggle controller, 1/2 pole mass -/+,

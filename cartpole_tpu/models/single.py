@@ -141,7 +141,8 @@ def single_cartpole_dynamics_jac(params: SingleCartPoleParams, x, u):
     of the reference, ``single_pendulum_dynamics.hpp:13-16``). Used on the
     solver hot path: every generated operation is a scalar expression that
     runs on full (batch,)-shaped lanes under ``vmap``, unlike ``jacfwd``
-    whose tangent axis lands in the TPU lane dimension.
+    whose tangent axis would add a dimension to every batched
+    intermediate.
     """
     from . import _single_gen
 

@@ -4,8 +4,8 @@ In the reference the closed loop lives at the *top* of the stack: the browser
 frame loop or test code alternates ``optimizer.step()`` and
 ``simulator.step()`` on the host
 (``/root/reference/viz/src/application.ts:424-458``,
-``optimization/optimization_test.cc:39-61``). On TPU that host round-trip per
-control tick would dominate, so the loop itself is a ``lax.scan`` compiled
+``optimization/optimization_test.cc:39-61``). On an accelerator that host
+round-trip per control tick would dominate, so the loop itself is a ``lax.scan`` compiled
 into one XLA program: MPC solve -> apply ``u[0]`` to the 1 kHz plant ->
 carry the warm start. The whole loop vmaps over scenarios and shard_maps over
 a device mesh.

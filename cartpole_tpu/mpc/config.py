@@ -52,8 +52,8 @@ class OptimizationParams:
     #: Line-search budget (reference: hard-coded 5, ``optimization.cc:76``).
     max_line_search_iterations: int = 5
     #: KKT linear solver: "condensed" (default — exact elimination of the
-    #: defect+pin rows down to a K x K SPD factorization; the TPU fast path,
-    #: ~8.7x faster than "lu" at batch 4096 on v5e), "schur" (two SPD
+    #: defect+pin rows down to a K x K SPD factorization; the fast path),
+    #: "schur" (two SPD
     #: Cholesky solves on the augmented system), or "lu" (reference-parity
     #: symmetric-indefinite factorization of the full KKT system). All three
     #: solve the same linear system, i.e. produce identical Gauss-Newton
@@ -62,8 +62,9 @@ class OptimizationParams:
     kkt_method: str = "condensed"
     #: Use the machine-generated closed-form dynamics Jacobians
     #: (models/_*_gen.py) chained by rule instead of jacfwd for the defect
-    #: linearization. Equivalent to <=1e-11; measured slower on v5e (jacfwd
-    #: shares one primal across all tangents), so off by default.
+    #: linearization. Equivalent to <=1e-11; off by default on the vmapped
+    #: path (jacfwd shares one primal across all tangents). The lanes path
+    #: always uses them.
     analytic_jacobians: bool = False
     #: Re-base the hard terminal equality rows onto an orthonormal basis
     #: (per-instance constraint-space QR of the condensed A_eq block)

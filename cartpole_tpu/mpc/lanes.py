@@ -1,12 +1,11 @@
-"""Batch-in-lanes MPC step — the TPU-layout rewrite of the hot path.
+"""Batch-in-lanes MPC step — the batch-last rewrite of the hot path.
 
-Round 1 measured the vmapped condensed solver bandwidth-bound at ~17.5k
-solves/s/chip, flat from batch 1024 to 32768: per-instance ``(4, 4)``
-Jacobian pages pad to TPU ``(8, 128)`` tiles under ``vmap`` (~64x HBM
-overhead on every rollout intermediate). This module re-implements the
-condensed Gauss-Newton MPC step with the batch in the TRAILING (lane) axis
-— every intermediate is ``(sd, M)`` / ``(sd, sd, M)``, tile padding <= 2x —
-using the machine-generated closed-form dynamics Jacobians
+Under ``vmap`` every per-instance intermediate is a tiny ``(4, 4)`` page
+with the batch leading, which tiled device layouts pad and strided
+accesses waste. This module re-implements the condensed Gauss-Newton MPC
+step with the batch in the TRAILING (lane) axis — every intermediate is
+``(sd, M)`` / ``(sd, sd, M)`` with thousands of instances contiguous along
+``M`` — using the machine-generated closed-form dynamics Jacobians
 (``models/_*_gen.py``) chained through the batch-last RK4 of
 ``ops/lanes.py``.
 
@@ -126,14 +125,13 @@ class _LanesProblem:
         # system is C = Hu + lam*I — ONLY the static u-cost Gram matrix.
         # With Hu = Q diag(e) Q^T computed once in f64 at trace time,
         # C^{-1} is a per-instance diagonal rescale between two static
-        # (K, K) matmuls (pure MXU work). Every terminal row — soft cost
+        # (K, K) matmuls. Every terminal row — soft cost
         # or hard equality — is eliminated through one tiny augmented
         # Schur complement (see condensed_step): cost weights enter only
         # as its 1/w^2 diagonal, never squared into a factorized matrix
         # (that would cost cond ~ w^2 ||M||^2 and produced garbage f32
         # steps in the soft-terminal-cost mode). This removes the batched
-        # Cholesky — measured at ~90% of the condensed step on v5e — from
-        # the hot path entirely.
+        # Cholesky from the hot path entirely.
         if not np.any(self._Ju_cost):
             # Hu == 0 would make the lam=0 rescale produce infs, and a
             # failed step is TERMINAL (fail_qp -> QP_INDEFINITE, matching
@@ -227,8 +225,7 @@ class _LanesProblem:
 
     def _fold_segment_rows(self, Z: _Z):
         """Rows (structure-of-arrays) fold: per-coordinate (S*B,) start
-        states — no packed (sd, M) intermediate is ever built, which is
-        what keeps the rollouts off the sublane-padding path
+        states — no packed (sd, M) intermediate is ever built
         (``ops/lanes.py`` SoA notes)."""
         sd, S, sp, B = self.sd, self.S, self.sp, self.B
         x_rows = tuple(Z.xs[i, :-1, :].reshape(S * B) for i in range(sd))
@@ -246,9 +243,8 @@ class _LanesProblem:
         if model.dynamics_core is not None:
             x_rows, useg = self._fold_segment_rows(Z)
             fr = lambda xr, u_: model.dynamics_core(dp, xr, u_)
-            # unroll=1: measured fastest for the short (T=sp) segment
-            # rollouts on v5e (scripts/probe_unroll.py); the default
-            # unroll=4 only pays off on the long window rollouts.
+            # unroll=1 for the short (T=sp) segment rollouts; the default
+            # unroll=4 is meant for the long window rollouts.
             xe_rows = rollout_rows(
                 fr, x_rows, useg, p.control_dt, angle, unroll=1
             )
@@ -309,8 +305,8 @@ class _LanesProblem:
         if model.dynamics_jac_core is not None:
             # Rows (SoA) linearization: the 20-odd sequential dynamics+
             # chain-rule evaluations run on per-coordinate (S*B,) arrays
-            # (no sublane padding / scatter, ~5x on v5e) inside one
-            # scanned RK4 body (compile-time control); results come back
+            # (no packing / scatter) inside one scanned RK4 body
+            # (compile-time control); results come back
             # packed for the tile-friendly (.., S, B) condensation.
             x_rows, useg = self._fold_segment_rows(Z)
             fjr = lambda xr, u_: model.dynamics_jac_core(dp, xr, u_)
@@ -540,31 +536,15 @@ class _LanesProblem:
         return dZ, nu_inf, first_order, jr_dz, ok, r, c_full
 
 
-def _solve_lanes(problem: _LanesProblem, Z0: _Z, config: NLSConfig,
-                 fused: bool = False, fused_opts: dict | None = None):
+def _solve_lanes(problem: _LanesProblem, Z0: _Z, config: NLSConfig):
     """The lanes analog of ``ops.solver.solve_nls`` — identical merit /
     line-search / damping / termination logic with explicit per-instance
-    ``(B,)`` scalars instead of ``vmap``.
-
-    ``fused=True`` swaps the scan body for the single-Pallas-kernel GN
-    iteration of ``ops/fused.py`` (same carry, same traces — equivalence
-    is asserted by ``tests/test_fused.py``)."""
+    ``(B,)`` scalars instead of ``vmap``."""
     with jax.default_matmul_precision("float32"):
-        return _solve_lanes_impl(
-            problem, Z0, config, fused=fused, fused_opts=fused_opts
-        )
+        return _solve_lanes_impl(problem, Z0, config)
 
 
-def _solve_lanes_impl(problem: _LanesProblem, Z0: _Z, config: NLSConfig,
-                      fused: bool = False,
-                      fused_opts: dict | None = None):
-    fused_opts = dict(fused_opts or {})
-    # eager_loop: run the GN iterations as a Python loop of EAGER calls
-    # instead of one lax.scan. Test-only escape hatch for the fused body
-    # on CPU: its fully-unrolled ~15k-op iteration takes XLA:CPU >6 min
-    # to compile as one program (LLVM on a single giant fused loop,
-    # measured 2026-08-20), but dispatches eagerly in seconds.
-    eager_loop = fused_opts.pop("eager_loop", False)
+def _solve_lanes_impl(problem: _LanesProblem, Z0: _Z, config: NLSConfig):
     dtype = Z0.u.dtype
     B = problem.B
     n_ls = config.max_line_search_iterations
@@ -695,22 +675,6 @@ def _solve_lanes_impl(problem: _LanesProblem, Z0: _Z, config: NLSConfig,
             trace,
         )
 
-    single_launch = False
-    if fused:
-        from ..ops.fused import fused_supported, make_fused_iteration
-
-        if not fused_supported(problem, config):
-            raise ValueError(
-                "fused=True but this configuration is not covered by the "
-                "fused kernel (needs generated-core dynamics, dynamics "
-                "params scalar or per-instance (B,), rebase_equalities "
-                "off)"
-            )
-        single_launch = bool(fused_opts.get("single_launch", False))
-        fused_fn = make_fused_iteration(problem, config, **fused_opts)
-        if not single_launch:
-            iteration = fused_fn
-
     init = (
         Z0,
         jnp.full((B,), config.lambda_initial, dtype),
@@ -720,22 +684,9 @@ def _solve_lanes_impl(problem: _LanesProblem, Z0: _Z, config: NLSConfig,
         jnp.full((B,), NLSTerminationState.MAX_ITERATIONS, jnp.int32),
         jnp.full((B,), jnp.inf, dtype),
     )
-    if single_launch:
-        # ops/fused.py single-launch mode: the whole fixed-trip solve is
-        # ONE pallas_call (iteration = minor grid dim, carry resident in
-        # VMEM); traces come back already stacked (n_iter, B).
-        (Z, lam, _, _, _, term, first_order), traces = fused_fn(init)
-    elif eager_loop:
-        carry, rows = init, []
-        for _ in range(config.max_iterations):
-            carry, tr = iteration(carry, None)
-            rows.append(tr)
-        traces = jax.tree.map(lambda *xs: jnp.stack(xs), *rows)
-        (Z, lam, _, _, _, term, first_order) = carry
-    else:
-        (Z, lam, _, _, _, term, first_order), traces = jax.lax.scan(
-            iteration, init, None, length=config.max_iterations
-        )
+    (Z, lam, _, _, _, term, first_order), traces = jax.lax.scan(
+        iteration, init, None, length=config.max_iterations
+    )
     iter_cost, iter_viol, iter_lambda, iter_alpha, iter_first, applied = traces
 
     r, c = problem.evaluate(Z)
@@ -761,8 +712,7 @@ def _solve_lanes_impl(problem: _LanesProblem, Z0: _Z, config: NLSConfig,
 
 # ---------------------------------------------------------------------- step
 def step_lanes(mpc: MPC, state: MPCState, x_current, dynamics_params,
-               b_x_set_point=0.0, fused: bool = False,
-               fused_opts: dict | None = None):
+               b_x_set_point=0.0):
     """Batched MPC step in the lanes layout — drop-in for
     ``vmap(mpc.step)``: inputs/outputs carry a LEADING batch axis
     (``state`` leaves ``(B, ...)``, ``x_current`` ``(B, sd)``); internally
@@ -832,9 +782,7 @@ def step_lanes(mpc: MPC, state: MPCState, x_current, dynamics_params,
     Z0 = _Z(xs=shoot, u=u_guess)
 
     problem = _LanesProblem(spec, xc, set_point, u_prev_cont, dynamics_params)
-    Z, solver_outputs = _solve_lanes(
-        problem, Z0, mpc.nls_config, fused=fused, fused_opts=fused_opts
-    )
+    Z, solver_outputs = _solve_lanes(problem, Z0, mpc.nls_config)
 
     u_out = Z.u  # (K, B)
     if core is not None:
@@ -932,8 +880,6 @@ def run_closed_loop_lanes(
     mpc_state: MPCState | None = None,
     auto_reset: bool = True,
     disturbances=None,
-    fused: bool = False,
-    fused_opts: dict | None = None,
 ) -> ClosedLoopResult:
     """Lanes-layout drop-in for ``vmap(run_closed_loop)``: ``x0`` is
     ``(B, sd)``, results carry a leading batch axis. One ``lax.scan`` over
@@ -961,10 +907,7 @@ def run_closed_loop_lanes(
 
     def body(carry, dist):
         x, st = carry  # x (sd, B), st batch-first MPCState
-        outputs, st2 = step_lanes(
-            mpc, st, x.T, dynamics_params, set_point,
-            fused=fused, fused_opts=fused_opts,
-        )
+        outputs, st2 = step_lanes(mpc, st, x.T, dynamics_params, set_point)
         u0 = outputs.u[:, 0]  # (B,)
         if auto_reset:
             failed = mpc.failure_mask(outputs)

@@ -117,23 +117,9 @@ def _mgs_qr(T):
     ("twice is enough"); a relative floor on each pivot guards rank
     collapse. All loops are static-width Python (n <= 7), so this lowers
     to fused dot-products over the lane axis."""
-    if isinstance(T, (list, tuple)):
-        # Column-list form, used by the fused Pallas kernel
-        # (ops/fused.py): Mosaic miscompiles chained reductions fed by
-        # value-level slices of a stacked 3-D array, so the kernel never
-        # builds ``T`` — it passes the columns it already has.
-        cols = list(T)
-        n = len(cols)
-        eps_rel = 1.0e-6 if cols[0].dtype == jnp.float32 else 1.0e-14
-    else:
-        n = T.shape[1]
-        eps_rel = 1.0e-6 if T.dtype == jnp.float32 else 1.0e-14
-        # Static slice+squeeze instead of ``T[:, i]``: jnp int indexing
-        # lowers to dynamic_slice, which Mosaic cannot lower.
-        cols = [
-            jax.lax.squeeze(jax.lax.slice_in_dim(T, i, i + 1, axis=1), (1,))
-            for i in range(n)
-        ]
+    n = T.shape[1]
+    eps_rel = 1.0e-6 if T.dtype == jnp.float32 else 1.0e-14
+    cols = [T[:, i] for i in range(n)]
     R = [[None] * n for _ in range(n)]
     qs = []
     for j in range(n):
@@ -382,8 +368,7 @@ class MPCProblemSpec:
         With ``params.analytic_jacobians``, uses the machine-generated
         closed-form dynamics Jacobians chained through
         :func:`segment_rollout_with_jac`; default is ``jacfwd`` of the
-        segment rollout (one shared primal for all tangents — measured
-        faster on v5e).
+        segment rollout (one shared primal for all tangents).
         """
         model = self.model
         if self.params.analytic_jacobians and model.dynamics_jac is not None:
@@ -544,7 +529,7 @@ class MPCProblemSpec:
         (du-space instead of full-z — identical while lambda = 0, which is
         every accepted nominal iteration).
 
-        This is the TPU answer to the reference's sparse mini_opt KKT
+        This is the batched answer to the reference's sparse mini_opt KKT
         (SURVEY.md §7 hard part 5): exploit structure to shrink the dense
         factorization, rather than build a sparse solver.
         """

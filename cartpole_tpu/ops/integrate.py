@@ -1,7 +1,7 @@
 """Numerical integration ops: angle wrap, RK4, and `lax.scan` rollouts.
 
 Capability parity with ``/root/reference/optimization/integration.hpp`` — but
-TPU-native: the reference hand-propagates RK4 Jacobians through the four
+compiled and batched: the reference hand-propagates RK4 Jacobians through the four
 stages by chain rule (``integration.hpp:36-46``); here a rollout is a plain
 ``lax.scan`` and Jacobians of *anything* (one step, a whole segment, the full
 window) come from ``jax.jacfwd`` of the pure function, so the chain-rule code
@@ -120,8 +120,8 @@ def segment_rollout_with_jac(
     state, not the accumulated Jacobians.
 
     Fully unrolled (T = state_spacing is small and static): a ``lax.scan``
-    here needs a dynamic-index scatter for the ``Ju`` column and keeps a
-    padded (sd, T) carry in HBM every step — measured ~1.6x slower on v5e.
+    here needs a dynamic-index scatter for the ``Ju`` column and keeps an
+    (sd, T) carry in device memory every step.
     """
     sd = x0.shape[-1]
     T = us.shape[-1]

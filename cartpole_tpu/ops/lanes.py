@@ -1,19 +1,18 @@
-"""Batch-in-lanes (batch-last) integration ops — the TPU layout fix.
+"""Batch-in-lanes (batch-last) integration ops.
 
 The vmapped hot path materializes ``(B, sd, sd)``-shaped Jacobian
-intermediates whose trailing ``(4, 4)`` pages pad to TPU ``(8, 128)`` tiles —
-~64x HBM overhead, which is what capped round 1 at ~17.5k solves/s (the chip
-is bandwidth-bound on padding, measured flat from batch 1024 to 32768).
+intermediates: tiny ``(4, 4)`` trailing pages that tiled device layouts
+pad and strided accesses waste.
 
 This module keeps the BATCH in the trailing (lane) axis instead: every
 intermediate is ``(sd, M)`` or ``(sd, sd, M)`` with ``M`` = thousands of
-instances, so the tile padding is <= 2x and the vector units stream full
-lanes. The machine-generated scalar dynamics kernels
-(``models/_single_gen.py`` / ``_double_gen.py``) broadcast over trailing axes
-by construction, so they run unmodified on ``x`` of shape ``(sd, M)``; the
-per-instance Jacobians come from their closed-form ``J_x``/``J_u`` outputs
-chained through a batch-last RK4 (jacfwd cannot produce per-instance
-Jacobians in this layout).
+instances contiguous in memory, so the vector units stream full rows. The
+machine-generated scalar dynamics kernels (``models/_single_gen.py`` /
+``_double_gen.py``) broadcast over trailing axes by construction, so they
+run unmodified on ``x`` of shape ``(sd, M)``; the per-instance Jacobians
+come from their closed-form ``J_x``/``J_u`` outputs chained through a
+batch-last RK4 (jacfwd cannot produce per-instance Jacobians in this
+layout).
 
 Replaces the same reference capability as ``ops/integrate.py`` (the hot loop
 of ``/root/reference/optimization/optimization.cc:110-155``); the vmapped
@@ -44,7 +43,6 @@ __all__ = [
     "rk4_step_rows",
     "rk4_step_with_jac_rows",
     "rollout_rows",
-    "segment_rollout_with_jac_rows",
     "segment_rollout_with_jac_scan",
     "wrap_angles_rows",
 ]
@@ -179,9 +177,8 @@ def rollout_lanes(
 # Structure-of-arrays variants: the state is a TUPLE of per-coordinate
 # (M,) arrays and Jacobians are nested tuples of entries ((M,) arrays or
 # Python 0.0/1.0 literals). No packed (sd, M) intermediate ever exists, so
-# there is no 4->8 sublane padding, no at[].set scatter for the angle
-# wrap, and XLA fuses the whole RK4 chain freely — measured 5x over the
-# packed rollout on v5e (scripts/probe_soa.py).
+# there is no at[].set scatter for the angle wrap, and XLA fuses the whole
+# RK4 chain freely.
 
 
 def _axpy_rows(x_rows, k_rows, a):
@@ -374,46 +371,6 @@ def rk4_step_with_jac_rows(fj: Callable, x_rows, u, h):
     return x_next, A, B
 
 
-def segment_rollout_with_jac_rows(
-    fj: Callable,
-    x0_rows,
-    us,
-    h,
-    angle_indices: Tuple[int, ...] = (),
-):
-    """Rows-form shooting-segment rollout with accumulated Jacobians.
-
-    ``us`` (T, M). Returns ``(x_end_rows, Jx_rows (sd x sd nested),
-    Ju_cols)`` where ``Ju_cols[k]`` is the row tuple ``d x_end / d u_k``.
-    The angle wrap has unit derivative, so it only touches the state.
-
-    NOTE: fully unrolled — the traced op count is ~T x the chain-rule
-    body and blows XLA compile time up at MPC sizes; the hot path uses
-    :func:`segment_rollout_with_jac_scan` instead.
-    """
-    import jax
-
-    sd = len(x0_rows)
-    T = us.shape[0]
-    x = x0_rows
-    Jx = _eye_rows(sd)
-    cols = []
-    for k in range(T):
-        # Static slice+squeeze instead of ``us[k]``: jnp int indexing
-        # lowers to dynamic_slice, which Mosaic cannot lower — this
-        # function is also traced inside the fused Pallas kernel
-        # (ops/fused.py). Identical semantics for the XLA path.
-        u_k = jax.lax.squeeze(
-            jax.lax.slice_in_dim(us, k, k + 1, axis=0), (0,)
-        )
-        x, A, B = rk4_step_with_jac_rows(fj, x, u_k, h)
-        x = wrap_angles_rows(x, angle_indices)
-        Jx = _mat_rows(A, Jx, sd)
-        cols = [_matvec_rows(A, c, sd) for c in cols]
-        cols.append(B)
-    return x, Jx, cols
-
-
 def segment_rollout_with_jac_scan(
     fj: Callable,
     x0_rows,
@@ -426,9 +383,9 @@ def segment_rollout_with_jac_scan(
 
     The per-step work (dynamics + within-step RK4 chain rule) runs in
     rows form inside ONE ``lax.scan`` body — compiled once instead of
-    unrolled T times, which keeps the trace ~T x smaller than
-    :func:`segment_rollout_with_jac_rows` while every intermediate stays
-    an unpadded (M,) array. The tiny cross-step accumulation
+    unrolled T times, which keeps the trace ~T x smaller than an
+    unrolled chain while every intermediate stays an unpadded (M,)
+    array. The tiny cross-step accumulation
     (``Jx = A_s Jx``, ``Ju`` column updates) runs packed afterwards: a
     handful of (sd, sd, M) ops whose traffic is negligible next to the
     dynamics chain.

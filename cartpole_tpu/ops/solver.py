@@ -8,7 +8,7 @@ penalty (``equality_penalty_initial``), and a caller-supplied retraction that
 wraps angles and clamps decision variables
 (``/root/reference/optimization/optimization.cc:73-81, 309-330``).
 
-This module is a ground-up TPU-native redesign of that capability:
+This module is a ground-up batched redesign of that capability:
 
 * **One XLA program.** The solve is a fixed-trip ``lax.scan`` over iterations
   with per-instance convergence freezing — no data-dependent shapes or python
@@ -21,7 +21,7 @@ This module is a ground-up TPU-native redesign of that capability:
       [ A              -d*I ] [nu] = [-c    ]
 
   as one batched dense factorization — tiny per instance (~10^2 rows), huge in
-  batch, which is exactly the shape XLA/TPU batched linear algebra wants.
+  batch, which is exactly the shape XLA's batched linear algebra wants.
 * **Globalization.** Backtracking line search on the exact L1 merit
   ``phi = 0.5||r||^2 + mu * ||c||_1`` with an Armijo test; all
   ``max_line_search_iterations`` candidates are evaluated in parallel and the
@@ -112,8 +112,7 @@ class NLSConfig:
     kkt_reg: float = 1.0e-10
     #: KKT linear-solver: "lu" factors the full symmetric-indefinite system
     #: (reference-parity path); "schur" eliminates through the regularized
-    #: Gauss-Newton Hessian with two SPD Cholesky factorizations — ~3x
-    #: faster on TPU where XLA's batched LU underperforms.
+    #: Gauss-Newton Hessian with two SPD Cholesky factorizations.
     kkt_method: str = "lu"
     #: Primal regularization floor added to the equilibrated augmented
     #: Hessian in the "schur" path (a dtype-aware floor of ~100 ulp also
@@ -182,6 +181,21 @@ def _merit(cost, c_l1, mu):
     return cost + mu * c_l1
 
 
+def kkt_solve_lu(J, r, A, c, lam, kkt_reg):
+    """Damped Gauss-Newton step from the full symmetric-indefinite KKT
+    system (reference parity): ``[[J^T J + lam I, A^T], [A, -kkt_reg I]]
+    [dz; nu] = [-J^T r; -c]``. Returns ``(dz, nu)``."""
+    dim, n_eq = J.shape[-1], A.shape[0]
+    dtype = J.dtype
+    g = J.T @ r
+    H = J.T @ J + lam * jnp.eye(dim, dtype=dtype)
+    reg = -kkt_reg * jnp.eye(n_eq, dtype=dtype)
+    kkt = jnp.block([[H, A.T], [A, reg]])
+    rhs = jnp.concatenate([-g, -c])
+    sol = jnp.linalg.solve(kkt, rhs)
+    return sol[:dim], sol[dim:]
+
+
 def solve_nls(problem: NLSProblem, z0, config: NLSConfig) -> tuple[Any, NLSOutputs]:
     """Solve one constrained NLS instance. Pure; callers ``vmap`` for batching.
 
@@ -193,10 +207,10 @@ def solve_nls(problem: NLSProblem, z0, config: NLSConfig) -> tuple[Any, NLSOutpu
     Returns:
       ``(z_final, NLSOutputs)``.
     """
-    # TPU matmuls on f32 inputs default to bf16 multiplication passes;
-    # the normal equations / KKT factorizations need true f32 accumulation
-    # or Cholesky loses positive-definiteness and solves spuriously hit
-    # MAX_LAMBDA (observed: 15% failure rate on v5e, zero on CPU).
+    # Accelerator f32 matmuls may run at reduced precision by default
+    # (TF32 on NVIDIA tensor cores); the normal equations / KKT
+    # factorizations need true f32 accumulation or Cholesky loses
+    # positive-definiteness and solves spuriously hit MAX_LAMBDA.
     with jax.default_matmul_precision("float32"):
         return _solve_nls_impl(problem, z0, config)
 
@@ -213,40 +227,6 @@ def _solve_nls_impl(problem: NLSProblem, z0, config: NLSConfig):
     has_eq = n_eq > 0
 
     ls_alphas = 0.5 ** jnp.arange(config.max_line_search_iterations, dtype=dtype)
-
-    # TPU shape hygiene: XLA's batched LU custom-call overflows scoped VMEM
-    # at awkward system sizes (v5e probe: 83/84/88 fail at any batch;
-    # 80/96/104/112/120/128 work), so the KKT system is padded to a multiple
-    # of 16 with an identity block. Pure layout change — padded rows solve
-    # to 0 and are sliced away.
-    total = dim + n_eq
-    kkt_pad = (-total) % 16
-
-    # Static identity with ones on the padded tail of the diagonal (avoids
-    # a scatter in the hot path).
-    import numpy as _np
-
-    _pad_eye = jnp.asarray(
-        _np.diag(
-            _np.concatenate([_np.zeros(total), _np.ones(kkt_pad)])
-        ).astype(_np.float64)
-    )
-
-    def _kkt_solve_lu(J, r, A, c, lam):
-        """Full symmetric-indefinite KKT factorization (reference parity)."""
-        g = J.T @ r
-        H = J.T @ J + lam * jnp.eye(dim, dtype=dtype)
-        reg = -config.kkt_reg * jnp.eye(n_eq, dtype=dtype)
-        kkt = jnp.block([[H, A.T], [A, reg]])
-        rhs = jnp.concatenate([-g, -c])
-        if kkt_pad:
-            kkt = (
-                jnp.pad(kkt, ((0, kkt_pad), (0, kkt_pad)))
-                + _pad_eye.astype(dtype)
-            )
-            rhs = jnp.pad(rhs, (0, kkt_pad))
-        sol = jnp.linalg.solve(kkt, rhs)
-        return sol[:dim], sol[dim:total]
 
     def _kkt_solve_schur(J, r, A, c, lam):
         """Augmented-Lagrangian Schur elimination: two SPD Cholesky solves.
@@ -331,21 +311,11 @@ def _solve_nls_impl(problem: NLSProblem, z0, config: NLSConfig):
             if config.kkt_method == "schur":
                 dz, nu = _kkt_solve_schur(J, r, A, c, lam)
             else:
-                dz, nu = _kkt_solve_lu(J, r, A, c, lam)
+                dz, nu = kkt_solve_lu(J, r, A, c, lam, config.kkt_reg)
         else:
             g = J.T @ r
             H = J.T @ J + lam * jnp.eye(dim, dtype=dtype)
-            # Same multiple-of-16 padding as the constrained paths: the
-            # batched LU custom call overflows scoped VMEM at awkward
-            # sizes (here total == dim since n_eq == 0).
-            if kkt_pad:
-                H_p = (
-                    jnp.pad(H, ((0, kkt_pad), (0, kkt_pad)))
-                    + _pad_eye.astype(dtype)
-                )
-                dz = jnp.linalg.solve(H_p, jnp.pad(-g, (0, kkt_pad)))[:dim]
-            else:
-                dz = jnp.linalg.solve(H, -g)
+            dz = jnp.linalg.solve(H, -g)
             nu = jnp.zeros((0,), dtype=dtype)
         ok = jnp.all(jnp.isfinite(dz)) & jnp.all(jnp.isfinite(nu))
         return dz, nu, ok

@@ -1,13 +1,13 @@
-"""Scenario-parallel execution over TPU device meshes.
+"""Scenario-parallel execution over device meshes.
 
 The reference runs ONE MPC instance on one browser/CPU thread (SURVEY.md §2
 parallelism audit: no threads, no distributed backend anywhere). This
-subsystem is therefore new first-class capability, designed the TPU way:
+subsystem is therefore new first-class capability, designed for devices:
 
-* **batch axis** — thousands of independent MPC instances per chip via
+* **batch axis** — thousands of independent MPC instances per device via
   ``vmap`` (the data-parallel analog);
-* **mesh axis** — scenarios sharded across chips/hosts with ``shard_map``
-  over a ``jax.sharding.Mesh``; XLA collectives over ICI/DCN carry only the
+* **mesh axis** — scenarios sharded across devices/hosts with ``shard_map``
+  over a ``jax.sharding.Mesh``; XLA collectives (NCCL on GPUs) carry only the
   tiny ``psum``/``pmax`` diagnostic reductions, since MPC instances are
   embarrassingly parallel (zero cross-instance communication in the solve).
 """

@@ -7,7 +7,7 @@ The reference ships a nanobind module ``pypendulum`` built from
 surface *exactly* — mutable field-by-field structs, the same constructor
 signatures and argument orders, the same method names — so scripts written
 against the reference (e.g. ``model/scratch.py:22-77``) run unchanged on
-the JAX/TPU stack:
+the JAX stack:
 
     import cartpole_tpu.pypendulum as pypendulum
 
@@ -16,7 +16,7 @@ After that import (or ``from cartpole_tpu import pypendulum``), a plain
 
 Precision: the reference is C++ ``double``; this shim solves in float64
 when ``jax_enable_x64`` is on (the parity configuration) and float32
-otherwise (the TPU deployment dtype — every closed-loop threshold still
+otherwise (the deployment dtype — every closed-loop threshold still
 holds there, see ``tests/test_f32_robustness.py``). The solver runs the
 ``lu`` reference-parity KKT path by default (see :class:`Optimization`).
 
@@ -181,7 +181,7 @@ class Optimization:
     The shim defaults to the ``lu`` KKT path — the reference-parity
     factorization (our u(t) agrees with the independent C++ oracle to
     2.8e-5 on it, ``tests/test_native.py``). The package-wide default is
-    the ``condensed`` TPU fast path, whose (exact) re-factorization shifts
+    the ``condensed`` fast path, whose (exact) re-factorization shifts
     iterates by ~1e-4/step, which closed-loop chaos amplifies; pass
     ``kkt_method="condensed"`` here to opt in when throughput matters more
     than trajectory-identity."""

@@ -2,7 +2,7 @@
 
 The reference derives its dynamics symbolically (SymPy/wrenfold Lagrangian,
 ``/root/reference/symbolic/dynamics_single.py``, ``dynamics_double.py``) and
-code-generates C++ (``symbolic/generate.py``). The TPU framework's dynamics
+code-generates C++ (``symbolic/generate.py``). This framework's dynamics
 are hand-written closed-form JAX (Jacobians via AD), so this layer inverts
 the role: the SymPy derivation is kept as an **independent correctness
 oracle** — the Euler-Lagrange equations are derived from scratch here and

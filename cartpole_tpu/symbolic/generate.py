@@ -53,14 +53,14 @@ def generate_jax_module(
     state/control Jacobians — the wrenfold ``single_pendulum_dynamics``
     J_x/J_u surface (``single_pendulum_dynamics.hpp:13-16``), emitted as
     CSE'd scalar JAX code so every operation runs on full (batch,)-shaped
-    lanes under vmap (no jacfwd tangent axis in the TPU lane dimension).
+    lanes under vmap (no jacfwd tangent axis on every intermediate).
     """
     import sympy as sym
     from sympy.printing.numpy import JaxPrinter
 
     class _WherePiecewisePrinter(JaxPrinter):
-        """Print Piecewise as nested where instead of select: select
-        lowers through an argmax that Pallas TPU cannot compile."""
+        """Print Piecewise as nested where instead of select (select
+        lowers through an argmax; nested where stays elementwise)."""
 
         def _print_Piecewise(self, expr):
             result = self._print(expr.args[-1].expr)
@@ -89,10 +89,8 @@ def generate_jax_module(
                 return root if expr.exp == sym.S.Half else f"(1.0/{root})"
             if expr.exp.is_Integer and expr.exp < 0:
                 # Never emit float-exponent pow: ``x**(-1.0)`` lowers to
-                # ``math.powf``, which the Mosaic TPU backend cannot
-                # legalize (measured 2026-08-20; positive-integer pow is
-                # ``integer_pow`` and fine). Reciprocal of an
-                # integer_pow is value-identical.
+                # a general ``pow``; a reciprocal of ``integer_pow`` is
+                # value-identical and stays elementwise arithmetic.
                 base = self.parenthesize(expr.base, 0)
                 n = -int(expr.exp)
                 denom = base if n == 1 else f"{base}**{n}"
@@ -138,9 +136,8 @@ def generate_jax_module(
     # -- plain dynamics -----------------------------------------------------
     # The `_core` variant returns the state-derivative ROWS as a tuple —
     # the structure-of-arrays form for batch-in-lanes rollouts, where
-    # per-coordinate (M,) arrays avoid the (sd, M) sublane padding and the
-    # stack/index fusion breaks of the packed form (measured 5x on v5e,
-    # scripts/probe_soa.py). `x` may be a packed (sd, ...) array or a
+    # per-coordinate (M,) arrays avoid the stack/index fusion breaks of the
+    # packed form. `x` may be a packed (sd, ...) array or a
     # tuple of per-coordinate arrays: only x[i] indexing is used.
     replacements, reduced = sym.cse(list(model.qdd_exprs))
     emit_prologue(

@@ -1,6 +1,6 @@
 """Observability & persistence: tracing, structured solve logs, checkpoints.
 
-TPU-native equivalents of the reference's auxiliary subsystems (SURVEY.md §5):
+Equivalents of the reference's auxiliary subsystems (SURVEY.md §5):
 mini_opt's compile-time-gated Chrome-trace collector becomes a host-side
 trace collector plus ``jax.profiler`` integration; the web app's JSON solve
 log becomes :class:`SolveLog`; the implicit "warm start == resumable state"

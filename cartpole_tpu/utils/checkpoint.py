@@ -90,8 +90,8 @@ def load_state(path: str, like: Any) -> Any:
 
 
 # --------------------------------------------------------------------- orbax
-# The TPU-idiomatic backend for sharded sweeps: saving writes one shard per
-# host (no gather through the ~35 MB/s host link for the full array), and
+# The backend for sharded sweeps: saving writes one shard per host (no
+# gather of the full array through one host), and
 # restoring places each leaf directly onto the devices/sharding of the
 # ``like`` tree. ``save_state`` / ``load_state`` above stay the
 # dependency-light single-host path.

@@ -6,7 +6,7 @@ Parity surface: mini_opt's ``trace_collector`` singleton and its
 and saved by the web UI as ``traces.json``
 (``viz/src/application.ts:353-364``). Here the same API traces host-side
 phases (problem build, compile, device step, log flush); device-side detail
-comes from ``jax.profiler`` via :func:`profiler_trace` (XLA/TPU timelines,
+comes from ``jax.profiler`` via :func:`profiler_trace` (XLA device timelines,
 per-kernel cost — the reference's WASM ``--profiling-funcs`` analog).
 """
 
@@ -120,7 +120,7 @@ def trace_scope(name: str, **args) -> Iterator[None]:
 @contextlib.contextmanager
 def profiler_trace(logdir: str) -> Iterator[None]:
     """Capture a ``jax.profiler`` device trace (TensorBoard/XProf format) —
-    per-kernel TPU timelines, HBM traffic, MXU utilization."""
+    per-kernel device timelines."""
     import jax
 
     jax.profiler.start_trace(logdir)

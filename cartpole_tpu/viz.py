@@ -3,7 +3,7 @@
 The reference's browser UI draws the cart, pole, wheels, floor, ghost carts
 for the MPC's predicted states (every 10th sample, alpha-faded) and a force
 arrow (``/root/reference/viz/src/renderer.ts:7-354``), next to live strip
-charts (``plotter.ts``). A TPU batch job has no browser, so this module
+charts (``plotter.ts``). A batch job has no browser, so this module
 renders the same picture offline with matplotlib: single frames, closed-loop
 animations (GIF/MP4), and strip-chart figures — fed by the same
 ``ClosedLoopResult`` / ``MPCOutputs`` PyTrees the rest of the stack uses.

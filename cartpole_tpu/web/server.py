@@ -1,7 +1,7 @@
 """HTTP/JSON server wrapping :class:`~cartpole_tpu.interactive.InteractiveLoop`.
 
 The reference runs the whole demo in the browser via WASM
-(``/root/reference/viz/src/application.ts``); on a TPU pod the solver
+(``/root/reference/viz/src/application.ts``); here the solver
 lives server-side instead, and the browser page (``page.py``) is a thin
 renderer + input surface. The split preserves every behavior:
 

@@ -32,12 +32,9 @@ def main():
     ap.add_argument("--cpu", action="store_true", help="force the CPU backend")
     ap.add_argument("--checkpoint", default=None,
                     help="save final warm-start states to this .npz")
-    ap.add_argument("--fused", action="store_true",
-                    help="run each shard through the fused GN-iteration "
-                    "Pallas megakernel (TPU; per-shard batch must be a "
-                    "multiple of 128) — the production fast path: the "
-                    "per-instance grid runs ~2.6x the XLA lanes path "
-                    "(fused_params_grid.json)")
+    ap.add_argument("--lanes", action="store_true",
+                    help="run each shard through the batch-in-lanes "
+                    "condensed path (mpc/lanes.py) instead of vmap")
     args = ap.parse_args()
 
     if args.cpu:
@@ -74,19 +71,9 @@ def main():
             state_spacing=5, max_iterations=10, kkt_method="condensed"
         )
     )
-    layout, fused_opts = "vmap", None
-    if args.fused:
-        per_shard = n // mesh.devices.size
-        tile = next((t for t in (512, 256, 128) if per_shard % t == 0),
-                    None)
-        if tile is None:
-            raise SystemExit(
-                f"--fused needs the per-device batch ({per_shard}) "
-                "divisible by a 128-multiple tile")
-        layout, fused_opts = "lanes-fused", {"batch_tile": tile}
     run = make_sharded_closed_loop(
         mpc, mesh, num_steps=args.steps, batched_params=True,
-        layout=layout, fused_opts=fused_opts,
+        layout="lanes" if args.lanes else "vmap",
     )
 
     t0 = time.perf_counter()

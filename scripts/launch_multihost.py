@@ -1,10 +1,10 @@
 """Multi-host scenario-sweep launcher.
 
-Run one copy of this script per host of a TPU pod slice (the reference has
-no distributed execution at all — SURVEY.md §2; this is the new-capability
-path). On Cloud TPU the coordinator/process metadata is auto-detected, so
-no flags are needed; elsewhere pass --coordinator/--num-processes/
---process-id explicitly. Each host contributes its local chips to one
+Run one copy of this script per host (the reference has no distributed
+execution at all — SURVEY.md §2; this is the new-capability path). Pass
+--coordinator/--num-processes/--process-id explicitly, or --auto where
+the cluster environment lets jax.distributed detect them. Each host
+contributes its local devices to one
 global scenario mesh; every host feeds its own shard of the global batch
 and the psum'd diagnostics are identical on all hosts.
 
@@ -26,13 +26,13 @@ import time
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--coordinator", default=None,
-                    help="coordinator address host:port (auto on Cloud TPU)")
+                    help="coordinator address host:port")
     ap.add_argument("--num-processes", type=int, default=None)
     ap.add_argument("--process-id", type=int, default=None)
     ap.add_argument("--auto", action="store_true",
-                    help="let jax.distributed auto-detect the pod "
-                    "environment (Cloud TPU) instead of explicit "
-                    "coordinator/process arguments")
+                    help="let jax.distributed auto-detect the cluster "
+                    "environment instead of explicit coordinator/process "
+                    "arguments")
     ap.add_argument("--batch", type=int, default=8192,
                     help="GLOBAL scenario count (divisible by #devices)")
     ap.add_argument("--steps", type=int, default=100)

@@ -1,11 +1,9 @@
-"""TPU probe: the algorithmic levers the round-5 floor model points at.
+"""Probe: the algorithmic levers of the solve.
 
-With the fused kernel VPU-compute-bound (``fused_floor.json``) and both
-launch count and HBM measured irrelevant, the only remaining throughput
-dimensions are algorithmic: GN iteration count (8, reference default)
-and folded line-search trial count (5, hard-coded in the reference,
-``optimization.cc:76``). Each trial re-rolls the whole window once per
-iteration, so trials are ~the marginal kernel cost. This probe measures
+Two throughput dimensions are algorithmic: GN iteration count (8,
+reference default) and folded line-search trial count (5, hard-coded in
+the reference, ``optimization.cc:76``). Each trial re-rolls the whole
+window once per iteration. This probe measures
 throughput AND closed-loop health (300-tick swing-up fraction, failed
 solves) for (iters, trials) variants at the bench operating point.
 These are SEMANTICS-CHANGING knobs — the probe records whether the
@@ -28,12 +26,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-_CACHE_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache"
-)
-jax.config.update("jax_compilation_cache_dir", _CACHE_DIR)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 10.0)
-
 OUT = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
     "algo_levers.json",
@@ -45,7 +37,6 @@ def main():
     ap.add_argument("--batch", type=int, default=4096)
     ap.add_argument("--ticks", type=int, default=100)
     ap.add_argument("--reps", type=int, default=3)
-    ap.add_argument("--tile", type=int, default=512)
     ap.add_argument("--variants", default="8x5,8x4,8x3,6x5,6x4")
     args = ap.parse_args()
 
@@ -53,6 +44,9 @@ def main():
         OptimizationParams, default_single_params, make_mpc,
     )
     from cartpole_tpu.mpc.lanes import run_closed_loop_lanes
+    from cartpole_tpu.utils.device import device_record, enable_compile_cache
+
+    enable_compile_cache()
 
     dtype = jnp.float32
     dp = default_single_params(dtype)
@@ -65,7 +59,7 @@ def main():
     sps = jnp.zeros((n,), dtype)
 
     results = {
-        "device": jax.devices()[0].device_kind,
+        **device_record(),
         "date": time.strftime("%Y-%m-%d %H:%M:%S"),
         "batch": n, "ticks": ticks,
         "rows": [],
@@ -90,22 +84,19 @@ def main():
             state_spacing=5, kkt_method="condensed",
         ))
         run = jax.jit(lambda x, s, st, m=mpc: run_closed_loop_lanes(
-            m, x, dp, ticks, s, mpc_state=st, fused=True,
-            fused_opts={"batch_tile": args.tile, "interpret": False}))
+            m, x, dp, ticks, s, mpc_state=st))
         st0 = MPCState(
             previous_solution=jnp.zeros((n, mpc.spec.dim), dtype),
             warm=jnp.zeros((n,), bool),
         )
         print(f"[{variant}] compiling ...", flush=True)
         t0 = time.perf_counter()
-        res = run(x0s, sps, st0)
-        np.asarray(res.final_state[:4])
+        res = jax.block_until_ready(run(x0s, sps, st0))
         compile_s = time.perf_counter() - t0
         best = math.inf
         for _ in range(args.reps):
             t0 = time.perf_counter()
-            res = run(x0s, sps, st0)
-            np.asarray(res.final_state[:4])
+            res = jax.block_until_ready(run(x0s, sps, st0))
             best = min(best, time.perf_counter() - t0)
         # 300-tick outcome at the operating point (chunked continuation
         # of the SAME compiled program, warm state carried).
@@ -119,7 +110,6 @@ def main():
             term = np.asarray(res_c.termination_states)
             n_failed += int(np.sum((term == 3) | (term == 4)))
             ticks_run += ticks
-        np.asarray(x[:4])
         row = {
             "iterations": iters, "trials": trials,
             "compile_s": round(compile_s, 1),

@@ -1,4 +1,4 @@
-"""Replay the failing f32 solves iteration-by-iteration on the TPU.
+"""Replay the failing f32 solves iteration-by-iteration on the accelerator.
 
 Runs the failing instances' closed loop to just before the failing tick,
 then manually drives the solver iterations capturing the magnitude /
@@ -17,10 +17,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-_CACHE_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache"
-)
-jax.config.update("jax_compilation_cache_dir", _CACHE_DIR)
+from cartpole_tpu.utils.device import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 from cartpole_tpu import OptimizationParams, default_single_params, make_mpc
 from cartpole_tpu.mpc.lanes import (

@@ -1,4 +1,4 @@
-"""Find the failing (instance, tick) solves in the TPU f32 bench run."""
+"""Find the failing (instance, tick) solves in the f32 bench run."""
 
 import math
 import os
@@ -12,11 +12,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-_CACHE_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache"
-)
-jax.config.update("jax_compilation_cache_dir", _CACHE_DIR)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 10.0)
+from cartpole_tpu.utils.device import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 from cartpole_tpu import OptimizationParams, default_single_params, make_mpc
 from cartpole_tpu.mpc.lanes import run_closed_loop_lanes

@@ -1,4 +1,4 @@
-"""Probe: per-tick GN-iteration distribution in the bench regime (TPU).
+"""Probe: per-tick GN-iteration distribution in the bench regime.
 
 Measures whether a batch-wide early exit (lax.while_loop over GN
 iterations instead of the fixed-trip scan) could save wall time: it can
@@ -9,13 +9,14 @@ straggler instance, so the fixed-trip scan wastes nothing a global exit
 could recover. Per-instance freezing already suppresses the semantic
 effect of the extra trips.
 
-Run on the chip: python scripts/probe_iter_distribution.py
+Run on the accelerator: python scripts/probe_iter_distribution.py
 """
-import math, sys
-sys.path.insert(0, "/root/repo")
+import math, os, sys
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax, jax.numpy as jnp, numpy as np
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 10.0)
+from cartpole_tpu.utils.device import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 from cartpole_tpu import MPCState, OptimizationParams, default_single_params, make_mpc
 from cartpole_tpu.mpc.lanes import run_closed_loop_lanes
 

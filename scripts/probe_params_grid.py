@@ -1,12 +1,10 @@
-"""TPU probe: fused-path throughput with PER-INSTANCE dynamics params.
+"""Probe: lanes-path throughput with PER-INSTANCE dynamics params.
 
-BASELINE config #5 is a 100k-scenario (mass, length)-GRID sweep; round 4's
-fused kernel refused non-scalar param leaves, so the flagship sweep shape
-ran only on the 563k XLA lanes path. Round 5 ships the params as an
-``(n_p, B)`` VMEM block (``ops/fused.py``). This probe measures the cost
-of that path vs the scalar-SMEM constant-folding path at the bench
-operating point, plus the XLA lanes path on the same grid for the
-old-vs-new comparison. Writes ``fused_params_grid.json``.
+BASELINE config #5 is a 100k-scenario (mass, length)-GRID sweep. Per-
+instance params ride the lane axis as ``(B,)`` leaves, which forfeits the
+constant folding the bench gets from scalar params closed over as
+constants. This probe measures that cost at the bench operating point.
+Writes ``params_grid.json``.
 """
 
 import argparse
@@ -25,15 +23,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-_CACHE_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache"
-)
-jax.config.update("jax_compilation_cache_dir", _CACHE_DIR)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 10.0)
-
 OUT = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-    "fused_params_grid.json",
+    "params_grid.json",
 )
 
 
@@ -42,13 +34,15 @@ def main():
     ap.add_argument("--batch", type=int, default=4096)
     ap.add_argument("--ticks", type=int, default=100)
     ap.add_argument("--reps", type=int, default=3)
-    ap.add_argument("--tile", type=int, default=512)
     args = ap.parse_args()
 
     from cartpole_tpu import (
         OptimizationParams, default_single_params, make_mpc,
     )
     from cartpole_tpu.mpc.lanes import run_closed_loop_lanes
+    from cartpole_tpu.utils.device import device_record, enable_compile_cache
+
+    enable_compile_cache()
 
     dtype = jnp.float32
     n, ticks = args.batch, args.ticks
@@ -58,8 +52,7 @@ def main():
     rng = np.random.RandomState(0)
     # The (mass, length) grid over the UI slider ranges, tiled up to the
     # batch when side*side < n (non-square batches must still fill every
-    # instance: a short (side*side,) leaf would fail fused_supported's
-    # per-instance shape check).
+    # instance: each leaf needs one value per lane).
     side = max(int(math.sqrt(n)), 1)
     masses = np.linspace(0.05, 0.2, side)
     lengths = np.linspace(0.15, 0.4, side)
@@ -78,9 +71,9 @@ def main():
     sps = jnp.zeros((n,), dtype)
 
     results = {
-        "device": jax.devices()[0].device_kind,
+        **device_record(),
         "date": time.strftime("%Y-%m-%d %H:%M:%S"),
-        "batch": n, "ticks": ticks, "tile": args.tile,
+        "batch": n, "ticks": ticks,
         "grid": f"{side}x{side} (m_1 0.05-0.2, l_1 0.15-0.4)",
     }
 
@@ -88,22 +81,17 @@ def main():
         with open(OUT, "w") as f:
             json.dump(results, f, indent=1)
 
-    def timed(name, dp, fused):
-        fused_opts = (
-            {"batch_tile": args.tile, "interpret": False} if fused else None
-        )
+    def timed(name, dp):
         run = jax.jit(lambda x, s: run_closed_loop_lanes(
-            mpc, x, dp, ticks, s, fused=fused, fused_opts=fused_opts))
+            mpc, x, dp, ticks, s))
         print(f"[{name}] compiling ...", flush=True)
         t0 = time.perf_counter()
-        res = run(x0s, sps)
-        np.asarray(res.final_state[:4])
+        res = jax.block_until_ready(run(x0s, sps))
         compile_s = time.perf_counter() - t0
         best = math.inf
         for _ in range(args.reps):
             t0 = time.perf_counter()
-            res = run(x0s, sps)
-            np.asarray(res.final_state[:4])
+            res = jax.block_until_ready(run(x0s, sps))
             best = min(best, time.perf_counter() - t0)
         term = np.asarray(res.termination_states)
         row = {
@@ -117,19 +105,14 @@ def main():
         save()
         return row
 
-    r_scalar = timed("fused_scalar_params", base, True)
-    r_grid = timed("fused_grid_params", grid, True)
-    r_xla = timed("xla_grid_params", grid, False)
+    r_scalar = timed("scalar_params", base)
+    r_grid = timed("grid_params", grid)
     results["summary"] = {
         "grid_vs_scalar": round(
             r_grid["solves_per_s"] / r_scalar["solves_per_s"], 4),
-        "fused_vs_xla_on_grid": round(
-            r_grid["solves_per_s"] / r_xla["solves_per_s"], 2),
         "note": (
-            "grid_vs_scalar is the cost of forfeiting in-kernel constant "
-            "folding ((n_p, B) VMEM block vs SMEM scalars); "
-            "fused_vs_xla_on_grid is what productizing per-instance "
-            "params in the kernel bought the BASELINE sweep shape."
+            "grid_vs_scalar is the cost of per-instance (B,) param leaves "
+            "against scalar params folded into the program as constants."
         ),
     }
     save()

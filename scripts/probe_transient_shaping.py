@@ -19,7 +19,7 @@ continues to 250 ticks with the warm-start state carried across the
 config switch (same spec dim, so ``previous_solution`` transfers).
 Metrics per variant: upright fraction @50/@250, n_failed, and the count
 of instances down at 250 that were also down at 50 (the transient's
-signature). Batch 4096, f32, fused lanes path (the product path).
+signature). Batch 4096, f32, lanes path (the product path).
 
 Writes ``transient_shaping.json``.
 """
@@ -39,11 +39,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-_CACHE_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache"
-)
-jax.config.update("jax_compilation_cache_dir", _CACHE_DIR)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 10.0)
+from cartpole_tpu.utils.device import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 OUT = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
@@ -81,7 +79,6 @@ def main():
     ap.add_argument("--total", type=int, default=250)
     ap.add_argument("--chunk", type=int, default=50)
     ap.add_argument("--variants", default=",".join(VARIANTS))
-    ap.add_argument("--tile", type=int, default=128)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
@@ -101,7 +98,6 @@ def main():
     x0s[:, 2] += rng.uniform(-0.1, 0.1, n)
     x0s = jnp.asarray(x0s, dtype)
     sps = jnp.zeros((n,), dtype)
-    fused_opts = {"batch_tile": args.tile, "interpret": False}
 
     def upright_mask(xf):
         # xf: (B, sd) batch-first final_state; bench's 0.1 rad criterion
@@ -116,7 +112,6 @@ def main():
         mpc = make_mpc(OptimizationParams(**kw), model)
         return mpc, jax.jit(lambda x, st: run_closed_loop_lanes(
             mpc, x, dp, args.chunk, sps, mpc_state=st,
-            fused=True, fused_opts=fused_opts,
         ))
 
     results = {"batch": n, "phase_a": args.phase_a, "total": args.total, "seed": args.seed}

@@ -9,7 +9,8 @@ here (no GitHub), so this test makes the dependency list *mechanically*
 true instead:
 
 * every top-level third-party import reachable by the test suite — in
-  ``cartpole_tpu/``, ``tests/``, ``bench.py``, ``__graft_entry__.py`` —
+  ``cartpole_tpu/``, ``tests/``, ``bench.py``, ``__graft_entry__.py``,
+  ``chip_smoke.py`` —
   must either be declared in the CI test job's ``pip install`` line or be
   guarded (``require_or_skip``/``importorskip``/inside ``try`` or a
   function body that callers guard);
@@ -40,7 +41,7 @@ DIST_TO_MODULES = {
 }
 
 LOCAL_TOPLEVEL = {"cartpole_tpu", "tests", "conftest", "pypendulum", "bench",
-                  "__graft_entry__"}
+                  "__graft_entry__", "chip_smoke"}
 
 
 def _ci_declared_modules():
@@ -89,7 +90,8 @@ def _unguarded_imports(path: Path):
 def test_every_unguarded_import_is_declared_in_ci():
     declared = _ci_declared_modules()
     offenders = {}
-    files = ([REPO / "bench.py", REPO / "__graft_entry__.py"]
+    files = ([REPO / "bench.py", REPO / "__graft_entry__.py",
+              REPO / "chip_smoke.py"]
              + sorted((REPO / "cartpole_tpu").rglob("*.py"))
              + sorted((REPO / "tests").rglob("*.py")))
     for f in files:

@@ -69,6 +69,21 @@ class TestCli:
         summary = json.loads(res.stdout)
         assert summary["batch"] == 8
         assert summary["n_failed_solves"] == 0
+        # --layout auto: the lanes path for the (default) condensed KKT.
+        assert summary["layout"] == "lanes"
+        assert summary["platform"] == "cpu"
+        assert summary["device_count"] == 8
+
+    def test_sweep_auto_layout_is_vmap_for_lu(self):
+        """--layout auto picks by kkt_method alone, on every backend."""
+        res = _run(
+            "sweep", "--cpu", "--batch", "8", "--steps", "2",
+            "--params", '{"max_iterations": 2, "kkt_method": "lu"}',
+        )
+        assert res.returncode == 0, res.stderr[-2000:]
+        summary = json.loads(res.stdout)
+        assert summary["layout"] == "vmap"
+        assert summary["device_kind"] == "cpu"
 
     def test_bad_params_rejected(self):
         res = _run("solve", "--cpu", "--params", '{"windowlength": 60}')
@@ -99,6 +114,22 @@ class TestBenchScript:
         # chunked continuation rounds UP to whole compiled programs
         assert out["upright_ticks"] == 14
         assert out["n_failed"] == 0
+        assert (out["platform"], out["device_kind"]) == ("cpu", "cpu")
+        assert out["device_count"] >= 1
+        assert "hbm_util" not in out  # no peak for a CPU smoke run
+
+    def test_no_accelerator_is_an_error_without_cpu_flag(self):
+        """Without --cpu the bench measures a device or fails: it never
+        falls back to the CPU."""
+        env = dict(os.environ, JAX_PLATFORMS="cpu")
+        env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+        res = subprocess.run(
+            [sys.executable, os.path.join(REPO, "bench.py"), "--batch", "4"],
+            capture_output=True, text=True, timeout=300, env=env, cwd=REPO,
+        )
+        assert res.returncode != 0
+        assert res.stdout.strip() == ""
+        assert "no accelerator" in res.stderr
 
     def test_layout_label_reports_timed_path(self):
         """--kkt lu cannot use lanes; the JSON must say what actually ran."""

@@ -2,7 +2,7 @@
 
 Tier-3 of the reference test strategy (SURVEY.md §4): the 200-step
 closed-loop swing-up of ``optimization_test.cc:12-77`` with identical
-thresholds, plus TPU-native tiers the reference lacks — batched-vs-single
+thresholds, plus batched tiers the reference lacks — batched-vs-single
 equivalence under ``vmap`` and warm-start statefulness.
 """
 

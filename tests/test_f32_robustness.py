@@ -1,6 +1,6 @@
 """f32 robustness regression: the round-1 bench ``n_failed`` defect.
 
-On TPU f32 (and CPU f32 — same mechanism), 8 of 81,920 bench solves hit
+In f32 (on any backend — same mechanism), 8 of 81,920 bench solves hit
 QP_INDEFINITE: mid-swing-up iterates with fast-spinning trajectories
 (theta_dot ~ -15 rad/s) produce segment-Jacobian chains whose Gram
 matrices span ~1e30, where the old *absolute* 1e-12 jitter is relatively

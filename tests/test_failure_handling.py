@@ -1,6 +1,6 @@
 """Per-instance failure detection and warm-start recovery.
 
-The TPU-scale analog of the reference's in-process failure surfaces
+The batch-scale analog of the reference's in-process failure surfaces
 (SURVEY.md §5): solver termination states checked by callers
 (``optimization_test.cc:44-46``) and ``Optimization::Reset()`` to discard a
 poisoned warm start (``optimization.hpp:83``, ``application.ts:209-214``) —

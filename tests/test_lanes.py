@@ -153,6 +153,65 @@ class TestStepEquivalence:
             np.asarray(out_l2.u), np.asarray(out_v2.u), atol=1e-8
         )
 
+    def test_per_instance_dynamics_params(self):
+        """A per-instance (mass, length) grid — the BASELINE config-5
+        sweep shape — gives each lane its own plant, as vmap does."""
+        import dataclasses
+
+        B = 4
+        mpc = _mpc(analytic_jacobians=True)
+        grid = np.stack(np.meshgrid([0.08, 0.12], [0.2, 0.3]),
+                        -1).reshape(B, 2)
+        dp = dataclasses.replace(
+            jax.tree.map(lambda v: jnp.broadcast_to(v, (B,)),
+                         default_single_params(jnp.float64)),
+            m_1=jnp.asarray(grid[:, 0]), l_1=jnp.asarray(grid[:, 1]),
+        )
+        x0 = _x0_batch(B, seed=11)
+        sp = jnp.zeros((B,), jnp.float64)
+        st_v = jax.vmap(lambda _: mpc.init_state(jnp.float64))(jnp.arange(B))
+        out_v, _ = jax.jit(
+            jax.vmap(mpc.step, in_axes=(0, 0, 0, 0))
+        )(st_v, x0, dp, sp)
+        out_l, _ = jax.jit(
+            lambda s, x, d, p: step_lanes(mpc, s, x, d, p)
+        )(_init_lanes_state(mpc, B), x0, dp, sp)
+        np.testing.assert_allclose(
+            np.asarray(out_l.u), np.asarray(out_v.u), atol=1e-8
+        )
+        np.testing.assert_array_equal(
+            np.asarray(out_l.solver.termination_state),
+            np.asarray(out_v.solver.termination_state),
+        )
+        # The grid must actually matter: different plants, different u.
+        u = np.asarray(out_l.u)
+        assert np.abs(u[0] - u[-1]).max() > 1e-3
+
+    def test_warm_start_with_binding_bounds(self):
+        """Warm-started ticks with a binding control limit (the line
+        search clamps u) stay equivalent tick for tick."""
+        B = 3
+        mpc = _mpc(analytic_jacobians=True, u_limit=20.0)
+        dp = default_single_params(jnp.float64)
+        x = _x0_batch(B, seed=3)
+        sp = jnp.zeros((B,), jnp.float64)
+        step_v = jax.jit(jax.vmap(mpc.step, in_axes=(0, 0, None, 0)))
+        step_l = jax.jit(lambda s, x_, d, p: step_lanes(mpc, s, x_, d, p))
+        st_v = jax.vmap(lambda _: mpc.init_state(jnp.float64))(jnp.arange(B))
+        st_l = _init_lanes_state(mpc, B)
+        u_max = 0.0
+        for _ in range(3):
+            out_v, st_v = step_v(st_v, x, dp, sp)
+            out_l, st_l = step_l(st_l, x, dp, sp)
+            np.testing.assert_allclose(
+                np.asarray(out_l.u), np.asarray(out_v.u), atol=1e-7
+            )
+            u_max = max(u_max, float(np.abs(np.asarray(out_l.u)).max()))
+            # Drive both with the vmapped one-step prediction so the
+            # state inputs stay identical across ticks.
+            x = out_v.predicted_states[:, 0, :]
+        assert np.isclose(u_max, 20.0)  # the limit did bind
+
     def test_rejects_non_condensed(self):
         mpc = _mpc(kkt_method="lu")
         dp = default_single_params(jnp.float64)

@@ -2,8 +2,8 @@
 
 Two OS processes, four virtual CPU devices each, one GLOBAL 8-device
 scenario mesh: the closed-loop sweep runs sharded across both processes
-and the psum'd diagnostics agree — the mechanism a TPU pod slice uses
-(SURVEY.md §5 distributed backend), validated without pod hardware.
+and the psum'd diagnostics agree — the mechanism a multi-host run uses
+(SURVEY.md §5 distributed backend), validated without several hosts.
 """
 
 import json

@@ -203,12 +203,9 @@ class TestBatchedParams:
         )
 
 
-class TestShardedFused:
-    """shard_map composed with the fused GN-iteration kernel path
-    (layout="lanes-fused") — the production TPU scale-out pairing. On CPU
-    the fused body runs through its emulation path (same tile arithmetic,
-    no pallas_call); the config is deliberately tiny because XLA:CPU
-    compiles the unrolled body superlinearly slowly (CLAUDE.md)."""
+class TestShardedLanes:
+    """shard_map composed with the batch-in-lanes condensed path
+    (layout="lanes") — the scale-out pairing the GPU runs."""
 
     def _tiny_mpc(self):
         return make_mpc(OptimizationParams(
@@ -216,10 +213,9 @@ class TestShardedFused:
             max_line_search_iterations=2, kkt_method="condensed",
         ))
 
-    def test_sharded_fused_matches_unsharded_lanes(self):
-        """Sharded lanes-fused closed loop == unsharded XLA lanes path,
-        with PER-INSTANCE dynamics params (the BASELINE grid-sweep shape
-        through the flagship kernel path)."""
+    def test_sharded_lanes_matches_unsharded_lanes(self):
+        """Sharded lanes closed loop == unsharded lanes closed loop, with
+        PER-INSTANCE dynamics params (the BASELINE grid-sweep shape)."""
         import dataclasses
 
         from cartpole_tpu.mpc.lanes import run_closed_loop_lanes
@@ -240,8 +236,7 @@ class TestShardedFused:
         sps = jnp.zeros((n,))
 
         run = make_sharded_closed_loop(
-            mpc, mesh, num_steps=2, batched_params=True,
-            layout="lanes-fused",
+            mpc, mesh, num_steps=2, batched_params=True, layout="lanes",
         )
         result, diag = jax.block_until_ready(run(
             shard_scenarios(x0s, mesh),
@@ -264,8 +259,52 @@ class TestShardedFused:
             atol=1e-8,
         )
 
+    def test_unknown_layout_rejected(self):
+        mesh = make_scenario_mesh()
+        for build in (make_sharded_step, make_sharded_closed_loop):
+            kw = {"num_steps": 1} if build is make_sharded_closed_loop else {}
+            try:
+                build(self._tiny_mpc(), mesh, layout="lanes-tiled", **kw)
+            except ValueError as e:
+                assert "unknown layout" in str(e)
+            else:
+                raise AssertionError("expected ValueError")
+
 
 class TestDiagnostics:
+    def test_pmax_reduction_of_negative_f64_values(self):
+        """Cross-device maxima go through ``lax.pmax``: the global max of
+        all-negative f64 values over the 8-device mesh is exact (an
+        all-reduce seeded with 0 would return 0)."""
+        from jax.sharding import PartitionSpec as P
+
+        from cartpole_tpu.ops.solver import NLSOutputs
+        from cartpole_tpu.parallel.mesh import SCENARIO_AXIS
+
+        mesh = make_scenario_mesh()
+        n = 16
+        rng = np.random.RandomState(4)
+        viol = -rng.uniform(1.0, 2.0, n)
+        first = -rng.uniform(3.0, 4.0, n)
+        z = jnp.zeros((n,))
+        solver = NLSOutputs(
+            termination_state=jnp.zeros((n,), jnp.int32),
+            n_iterations=jnp.ones((n,), jnp.int32),
+            cost=z, constraint_violation=jnp.asarray(viol),
+            first_order_norm=jnp.asarray(first), lambda_final=z,
+            iter_cost=z, iter_violation=z, iter_lambda=z,
+            iter_step_size=z, iter_first_order=z,
+        )
+        reduce = jax.jit(jax.shard_map(
+            lambda s: reduce_diagnostics(s, SCENARIO_AXIS),
+            mesh=mesh, in_specs=(P(SCENARIO_AXIS),), out_specs=P(),
+            check_vma=False,
+        ))
+        diag = reduce(shard_scenarios(solver, mesh))
+        assert float(diag.max_violation) == viol.max()
+        assert float(diag.max_first_order) == first.max()
+        assert int(diag.n_instances) == n
+
     def test_local_reduction_counts(self):
         mpc = make_mpc(OptimizationParams(max_iterations=4))
         dp = default_single_params(jnp.float64)

@@ -66,7 +66,7 @@ class TestScratchFlow:
 
     def test_defaults_to_reference_parity_kkt_path(self):
         # Drop-in users get the lu path (u(t) parity 2.8e-5 vs the oracle,
-        # tests/test_native.py); the TPU fast path is an explicit opt-in.
+        # tests/test_native.py); the condensed fast path is an explicit opt-in.
         opt = pypendulum.Optimization(pypendulum.OptimizationParams())
         assert opt._mpc.params.kkt_method == "lu"
         fast = pypendulum.Optimization(

@@ -1,6 +1,6 @@
 """Alternate KKT solver paths: parity with the LU path.
 
-Two TPU fast paths replace the symmetric-indefinite LU factorization
+Two fast paths replace the symmetric-indefinite LU factorization
 (``NLSConfig.kkt_method``): "schur" — two SPD Cholesky solves on the
 equilibrated augmented system (ops/solver.py); "condensed" — exact
 elimination of the block-bidiagonal defect+pin rows down to a K-var SPD

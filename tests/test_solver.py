@@ -4,6 +4,7 @@ synthetic problems with known solutions."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from cartpole_tpu import NLSConfig, NLSProblem, NLSTerminationState, solve_nls
 
@@ -151,10 +152,12 @@ class TestBatchingAndDiagnostics:
 
 
 class TestKKTPadding:
+    """The KKT systems are solved at their own size, unpadded, whatever
+    that size is (awkward odd sizes included)."""
+
     def test_unconstrained_awkward_dim_padded_solve_exact(self):
-        """dim=83 is one of the v5e batched-LU VMEM-bug sizes; the
-        unconstrained branch must go through the same multiple-of-16
-        padding as the constrained paths and still solve exactly."""
+        """dim=83 (odd, not a multiple of any tile): the unconstrained
+        branch solves the normal equations exactly."""
         dim = 83
         rng = np.random.default_rng(2)
         A = jnp.asarray(rng.normal(size=(dim + 7, dim)))
@@ -168,3 +171,29 @@ class TestKKTPadding:
             np.asarray(z), np.asarray(z_expected), atol=1e-9
         )
         assert bool(np.all(np.isfinite(np.asarray(z))))
+
+    @pytest.mark.parametrize("total", [83, 84, 88, 96])
+    def test_lu_kkt_matches_numpy_f64(self, total):
+        """The reference-parity ``lu`` KKT solve at awkward and round
+        system sizes agrees with a numpy f64 solve of the same block
+        system."""
+        from cartpole_tpu.ops.solver import kkt_solve_lu
+
+        n_eq = 7
+        dim = total - n_eq
+        rng = np.random.default_rng(total)
+        J = rng.normal(size=(dim + 5, dim))
+        r = rng.normal(size=(dim + 5,))
+        A = rng.normal(size=(n_eq, dim))
+        c = rng.normal(size=(n_eq,))
+        lam, reg = 1e-3, 1e-10
+        dz, nu = jax.jit(kkt_solve_lu)(
+            jnp.asarray(J), jnp.asarray(r), jnp.asarray(A), jnp.asarray(c),
+            lam, reg,
+        )
+        kkt = np.block([[J.T @ J + lam * np.eye(dim), A.T],
+                        [A, -reg * np.eye(n_eq)]])
+        want = np.linalg.solve(kkt, np.concatenate([-J.T @ r, -c]))
+        assert dz.shape == (dim,) and nu.shape == (n_eq,)
+        np.testing.assert_allclose(np.asarray(dz), want[:dim], atol=1e-9)
+        np.testing.assert_allclose(np.asarray(nu), want[dim:], atol=1e-9)

@@ -234,7 +234,7 @@ class TestCheckpoint:
 
 
 class TestOrbaxCheckpoint:
-    """The TPU-idiomatic backend: sharded save/restore + async save."""
+    """The sharded-sweep backend: sharded save/restore + async save."""
 
     @pytest.fixture(autouse=True)
     def _need_orbax(self):
