@@ -35,150 +35,41 @@ def double_dynamics_core(params, x, u, forces=None):
         f_1_y = forces[3]
         f_2_x = forces[4]
         f_2_y = forces[5]
-    x0 = jnp.sin(th_2)
-    x1 = l_2*x0
-    x2 = jnp.cos(th_2)
-    x3 = l_2*x2
-    x4 = m_2*x3
-    x5 = th_1_v**2
-    x6 = jnp.cos(th_1)
-    x7 = l_1*x6
-    x8 = x5*x7
-    x9 = m_2*x8
-    x10 = jnp.sin(th_1)
-    x11 = -f_2_x*x1 + f_2_y*l_2*x2 - g*x4 + l_1*l_2*m_2*x10*x2*x5 - x1*x9
-    x12 = x0**2
-    x13 = m_1*m_b
-    x14 = x12*x13
-    x15 = m_2*x14
+    x0 = (1.0/(m_1 + m_2 + m_b))
+    x1 = jnp.sin(th_1)
+    x2 = l_1*x1
+    x3 = m_2*x2
+    x4 = -m_1*x2 - x3
+    x5 = x1**2
+    x6 = l_1**2
+    x7 = m_1*x6
+    x8 = jnp.cos(th_1)
+    x9 = x8**2
+    x10 = m_2*x6
+    x11 = (1.0/(-x0*x4**2 + x10*x5 + x10*x9 + x5*x7 + x7*x9))
+    x12 = jnp.sin(th_2)
+    x13 = l_2*x12
+    x14 = l_1*x8
+    x15 = jnp.cos(th_2)
     x16 = l_2*x15
-    x17 = m_b**2
-    x18 = x12*x17
-    x19 = m_1*x18
-    x20 = x2**2
-    x21 = x17*x20
-    x22 = m_1*x21
-    x23 = m_1**2
-    x24 = x12*x23
-    x25 = m_b*x24
-    x26 = x20*x23
-    x27 = m_b*x26
-    x28 = m_2*x18
-    x29 = m_2*x21
-    x30 = m_2**2
-    x31 = x20*x30
-    x32 = m_b*x31
-    x33 = x13*x20
-    x34 = 2*x33
-    x35 = m_2*x34
-    x36 = x6**2
-    x37 = m_1**3*x36
-    x38 = x12*x37
-    x39 = x20*x37
-    x40 = x30*x36
-    x41 = x12*x40
-    x42 = m_1*x41
-    x43 = x31*x36
-    x44 = m_1*x43
-    x45 = x25*x36
-    x46 = x27*x36
-    x47 = m_b*x30
-    x48 = x36*x47
-    x49 = x12*x48
-    x50 = 2*x36
-    x51 = x0*x13
-    x52 = x10*x51
-    x53 = 2*x4*x52
-    x54 = x24*x36
-    x55 = 2*m_2
-    x56 = x54*x55
-    x57 = x26*x36
-    x58 = x55*x57
-    x59 = x10**2
-    x60 = x28*x59
-    x61 = x29*x36
-    x62 = x32*x36
-    x63 = m_2*x17
-    x64 = x0*x10
-    x65 = 2*x64
-    x66 = x63*x65
-    x67 = x3*x6
-    x68 = x47*x65
-    x69 = m_2*m_b
-    x70 = x0*x69
-    x71 = x2*x6
-    x72 = x10*x71
-    x73 = x23*x71
-    x74 = x30*x71
-    x75 = m_1*m_2
-    x76 = (2*m_1*m_2*x0*x36 + m_1*m_b*x0 + m_2*m_b*x0 + x0*x23*x36 + x0*x30*x36 - x10*x73 - x10*x74 - x13*x72 - x51*x59 - x59*x70 - x69*x72 - 2*x72*x75)/(l_2*x19 + l_2*x22 + l_2*x25 + l_2*x27 + l_2*x28 + l_2*x29 + l_2*x32 + l_2*x35 + l_2*x38 + l_2*x39 + l_2*x42 + l_2*x44 + l_2*x45 + l_2*x46 + l_2*x49 + l_2*x56 + l_2*x58 - l_2*x60 - l_2*x61 - l_2*x62 + x16*x50 + x16 - x53*x6 - x66*x67 - x67*x68)
-    x77 = l_1*x10
-    x78 = g*x7
-    x79 = th_2_v**2
-    x80 = x4*x79
-    x81 = -f_1_x*x77 + f_1_y*l_1*x6 - f_2_x*x77 + f_2_y*l_1*x6 + l_1*l_2*m_2*x0*x6*x79 - m_1*x78 - m_2*x78 - x77*x80
-    x82 = l_1*x15
-    x83 = l_1*x19
-    x84 = l_1*x22
-    x85 = l_1*x25
-    x86 = l_1*x27
-    x87 = l_1*x28
-    x88 = l_1*x29
-    x89 = l_1*x32
-    x90 = l_1*x35
-    x91 = l_1*x38
-    x92 = l_1*x39
-    x93 = l_1*x42
-    x94 = l_1*x44
-    x95 = l_1*x45
-    x96 = l_1*x46
-    x97 = l_1*x49
-    x98 = x52*x55
-    x99 = x2*x7
-    x100 = l_1*x56
-    x101 = l_1*x58
-    x102 = l_1*x60
-    x103 = l_1*x61
-    x104 = l_1*x62
-    x105 = x12*x75
-    x106 = x20*x69
-    x107 = x20*x75
-    x108 = 2*x107
-    x109 = (-x0*x71*x75 - x0*x74 + x10*x105 + x10*x106 + x10*x108 + x10*x14 + x10*x24 + x10*x26 + x10*x31 + x10*x33 - x70*x71)/(x100 + x101 - x102 - x103 - x104 + x50*x82 - x66*x99 - x68*x99 + x82 + x83 + x84 + x85 + x86 + x87 + x88 + x89 + x90 + x91 + x92 + x93 + x94 + x95 + x96 + x97 - x98*x99)
-    x110 = f_1_x + f_2_x + f_b_x + m_1*x8 + u + x80 + x9
-    x111 = x12*x69
-    x112 = 2*x71
-    x113 = x112*x75
-    x114 = x10*x70
-    x115 = x71*x98
-    x116 = x112*x64
-    x117 = x116*x63
-    x118 = x116*x47
-    x119 = l_2*x82
-    x120 = x3*x7
-    x121 = x17*x64
-    x122 = (-x112*x13 - x112*x69 - x113 - x114 - x121 - x17*x71 - x52 - x73 - x74)/(l_2*x100 + l_2*x101 - l_2*x102 - l_2*x103 - l_2*x104 + l_2*x83 + l_2*x84 + l_2*x85 + l_2*x86 + l_2*x87 + l_2*x88 + l_2*x89 + l_2*x90 + l_2*x91 + l_2*x92 + l_2*x93 + l_2*x94 + l_2*x95 + l_2*x96 + l_2*x97 + x119*x50 + x119 - x120*x66 - x120*x68 - x53*x7)
-    x123 = l_1**2
-    x124 = x123*x15
-    x125 = m_b*x23
-    x126 = x13*x55
-    x127 = m_2**3
-    x128 = x127*x36
-    x129 = l_2**2
-    x130 = x129*x20
-    x131 = m_b*x130
-    x132 = m_2*x129
-    x133 = x12*x129
-    x134 = m_1*x133
-    x135 = x129*x30
-    x136 = x135*x18
-    x137 = x129*x17
-    x138 = 2*x129
-    x139 = m_1*x138
-    x140 = 2*x135
-    qdd_0 = x109*x81 + x11*x76 + x110*(x105*x50 + x105*x59 - x106*x36 + x106 + x107*x36 + x108*x59 - x111*x59 + x111 - x112*x114 - x113*x64 + x14 + x24*x59 + x26*x59 + x31*x59 + x33 + x41 + x54 + x57 - x65*x74)/(-x115 - x117 - x118 + x15*x50 + x15 + x19 + x22 + x25 + x27 + x28 + x29 + x32 + x35 + x38 + x39 + x42 + x44 + x45 + x46 + x49 + x56 + x58 - x60 - x61 - x62)
-    qdd_1 = x109*x110 + x11*x122 + x81*(x105 + 2*x106 + x108 + x111 + 2*x14 + x18 + x21 + x24 + x26 + x31 + x34)/(-x115*x123 - x117*x123 - x118*x123 + x123*x19 + x123*x22 + x123*x25 + x123*x27 + x123*x28 + x123*x29 + x123*x32 + x123*x35 + x123*x38 + x123*x39 + x123*x42 + x123*x44 + x123*x45 + x123*x46 + x123*x49 + x123*x56 + x123*x58 - x123*x60 - x123*x61 - x123*x62 + x124*x50 + x124)
-    qdd_2 = x11*(m_1*x17 + 3*m_1*x40 + 3*m_2*x23*x36 + x125*x36 + x125 + x126*x36 + x126 + x128 + x37 + x47 + x48 + x63)/(-m_1*x118*x129 + m_1*x128*x130 - m_b*x116*x127*x129 + m_b*x128*x133 - x121*x138*x74 + x127*x131 - x128*x131 + x128*x134 + x132*x19 + x132*x22 + x132*x25 + x132*x27 + x132*x38 + x132*x39 + x132*x45 + x132*x46 + x134*x47 - x136*x59 + x136 + x137*x31 - x137*x43 + x139*x32 + x139*x49 + x140*x54 + x140*x57) + x110*x76 + x122*x81
+    x17 = m_2*x16
+    x18 = x0*x4
+    x19 = m_2*x13
+    x20 = x13*x3 + x14*x17 + x18*x19
+    x21 = l_2**2
+    x22 = x12**2
+    x23 = th_1_v**2
+    x24 = x14*x23
+    x25 = m_2*x24
+    x26 = th_2_v**2
+    x27 = f_1_x + f_2_x + f_b_x + m_1*x24 + u + x17*x26 + x25
+    x28 = g*x14
+    x29 = f_1_x*x2 - f_1_y*l_1*x8 + f_2_x*x2 - f_2_y*l_1*x8 - l_1*l_2*m_2*x12*x26*x8 + m_1*x28 + m_2*x28 + x16*x26*x3 + x18*x27
+    x30 = (-f_2_x*x13 + f_2_y*l_2*x15 - g*x17 + l_1*l_2*m_2*x1*x15*x23 + l_2*m_2*x0*x12*x27 + x11*x20*x29 - x13*x25)/(-m_2**2*x0*x21*x22 + m_2*x15**2*x21 + m_2*x21*x22 - x11*x20**2)
+    x31 = x11*(-x20*x30 - x29)
+    qdd_0 = x0*(x19*x30 + x27 - x31*x4)
+    qdd_1 = x31
+    qdd_2 = x30
     return (b_v, th_1_v, th_2_v, qdd_0, qdd_1, qdd_2)
 
 
@@ -208,361 +99,121 @@ def double_dynamics_jac_core(params, x, u, forces=None):
         f_1_y = forces[3]
         f_2_x = forces[4]
         f_2_y = forces[5]
-    x0 = jnp.sin(th_2)
-    x1 = l_2*x0
-    x2 = jnp.cos(th_2)
-    x3 = l_2*x2
-    x4 = m_2*x3
-    x5 = th_1_v**2
-    x6 = jnp.cos(th_1)
-    x7 = l_1*x6
-    x8 = x5*x7
-    x9 = m_2*x8
-    x10 = jnp.sin(th_1)
-    x11 = -f_2_x*x1 + f_2_y*l_2*x2 - g*x4 + l_1*l_2*m_2*x10*x2*x5 - x1*x9
-    x12 = x10**2
-    x13 = m_1*m_b
-    x14 = x0*x13
-    x15 = x12*x14
-    x16 = m_2*m_b
-    x17 = x0*x16
-    x18 = x2*x6
-    x19 = x10*x18
-    x20 = x6**2
-    x21 = m_1**2
-    x22 = x18*x21
-    x23 = m_2**2
-    x24 = x18*x23
-    x25 = 2*x10
-    x26 = m_1*m_2
-    x27 = x18*x26
-    x28 = 2*m_1*m_2*x0*x20 + m_1*m_b*x0 + m_2*m_b*x0 + x0*x20*x21 + x0*x20*x23 - x10*x22 - x10*x24 - x12*x17 - x13*x19 - x15 - x16*x19 - x25*x27
-    x29 = x0**2
-    x30 = x13*x29
-    x31 = m_2*x30
-    x32 = l_2*x31
-    x33 = m_b**2
-    x34 = x29*x33
-    x35 = m_1*x34
-    x36 = x2**2
-    x37 = x33*x36
-    x38 = m_1*x37
-    x39 = x21*x29
-    x40 = m_b*x39
-    x41 = l_2*x40
-    x42 = x21*x36
-    x43 = m_b*x42
-    x44 = l_2*x43
-    x45 = m_2*x34
-    x46 = l_2*x45
-    x47 = m_2*x37
-    x48 = l_2*x47
-    x49 = x23*x36
-    x50 = m_b*x49
-    x51 = l_2*x50
-    x52 = x13*x36
-    x53 = 2*x52
-    x54 = m_2*x53
-    x55 = m_1**3
-    x56 = x20*x55
-    x57 = x29*x56
-    x58 = x36*x56
-    x59 = x20*x23
-    x60 = x29*x59
-    x61 = m_1*x60
-    x62 = x20*x49
-    x63 = m_1*x62
-    x64 = x20*x40
-    x65 = x20*x43
-    x66 = m_b*x23
-    x67 = x20*x66
-    x68 = x29*x67
-    x69 = 2*x20
-    x70 = x10*x14
-    x71 = 2*x6
-    x72 = x70*x71
-    x73 = x20*x39
-    x74 = 2*m_2
-    x75 = x73*x74
-    x76 = x20*x42
-    x77 = x74*x76
-    x78 = x12*x45
-    x79 = x20*x47
-    x80 = x20*x50
-    x81 = m_2*x33
-    x82 = x0*x6
-    x83 = x25*x3*x82
-    x84 = l_2*x35 + l_2*x38 + l_2*x54 + l_2*x57 + l_2*x58 + l_2*x61 + l_2*x63 + l_2*x64 + l_2*x65 + l_2*x68 + l_2*x75 + l_2*x77 - l_2*x78 - l_2*x79 - l_2*x80 + x32*x69 + x32 - x4*x72 + x41 + x44 + x46 + x48 + x51 - x66*x83 - x81*x83
-    x85 = (1.0/(x84))
-    x86 = x28*x85
-    x87 = l_1*x10
-    x88 = g*x7
-    x89 = th_2_v**2
-    x90 = x4*x89
-    x91 = -f_1_x*x87 + f_1_y*l_1*x6 - f_2_x*x87 + f_2_y*l_1*x6 + l_1*l_2*m_2*x0*x6*x89 - m_1*x88 - m_2*x88 - x87*x90
-    x92 = x26*x29
-    x93 = x10*x92
-    x94 = x16*x36
-    x95 = x10*x94
-    x96 = x10*x39
-    x97 = x10*x42
-    x98 = x10*x49
-    x99 = x26*x36
-    x100 = 2*x99
-    x101 = x10*x100
-    x102 = x0*x24
-    x103 = -x0*x27 + x10*x30 + x10*x52 + x101 - x102 - x17*x18 + x93 + x95 + x96 + x97 + x98
-    x104 = l_1*x31
-    x105 = l_1*x35
-    x106 = l_1*x38
-    x107 = l_1*x40
-    x108 = l_1*x43
-    x109 = l_1*x45
-    x110 = l_1*x47
-    x111 = l_1*x50
-    x112 = l_1*x54
-    x113 = l_1*x57
-    x114 = l_1*x58
-    x115 = l_1*x61
-    x116 = l_1*x63
-    x117 = l_1*x64
-    x118 = l_1*x65
-    x119 = l_1*x68
-    x120 = x14*x74
-    x121 = x10*x2
-    x122 = x121*x7
-    x123 = l_1*x75
-    x124 = l_1*x77
-    x125 = l_1*x78
-    x126 = l_1*x79
-    x127 = l_1*x80
-    x128 = 2*x0
-    x129 = x128*x81
-    x130 = x128*x66
-    x131 = x104*x69 + x104 + x105 + x106 + x107 + x108 + x109 + x110 + x111 + x112 + x113 + x114 + x115 + x116 + x117 + x118 + x119 - x120*x122 - x122*x129 - x122*x130 + x123 + x124 - x125 - x126 - x127
-    x132 = (1.0/(x131))
-    x133 = x103*x132
-    x134 = f_1_x + f_2_x + f_b_x + m_1*x8 + u + x9 + x90
-    x135 = x16*x29
-    x136 = x10*x17
-    x137 = 2*x18
-    x138 = -x10*x128*x27 + x100*x12 - x102*x25 - x12*x135 + x12*x39 + x12*x42 + x12*x49 + x12*x92 + x135 - x136*x137 - x20*x94 + x20*x99 + x30 + x52 + x60 + x69*x92 + x73 + x76 + x94
-    x139 = x18*x70*x74
-    x140 = x129*x19
-    x141 = x130*x19
-    x142 = -x139 - x140 - x141 + x31*x69 + x31 + x35 + x38 + x40 + x43 + x45 + x47 + x50 + x54 + x57 + x58 + x61 + x63 + x64 + x65 + x68 + x75 + x77 - x78 - x79 - x80
-    x143 = (1.0/(x142))
-    x144 = x138*x143
-    x145 = l_2*x104
-    x146 = 2*x4
-    x147 = x129*x3
-    x148 = x10*x7
-    x149 = x130*x3
-    x150 = l_2*x105 + l_2*x106 + l_2*x107 + l_2*x108 + l_2*x109 + l_2*x110 + l_2*x111 + l_2*x112 + l_2*x113 + l_2*x114 + l_2*x115 + l_2*x116 + l_2*x117 + l_2*x118 + l_2*x119 + l_2*x123 + l_2*x124 - l_2*x125 - l_2*x126 - l_2*x127 + x145*x69 + x145 - x146*x7*x70 - x147*x148 - x148*x149
-    x151 = (1.0/(x150))
-    x152 = x10*x33
-    x153 = x0*x152
-    x154 = -x13*x137 - x136 - x137*x16 - x153 - x18*x33 - x22 - x24 - 2*x27 - x70
-    x155 = x151*x154
-    x156 = l_1**2
-    x157 = x156*x31
-    x158 = x156*x40
-    x159 = x156*x43
-    x160 = x156*x45
-    x161 = x156*x47
-    x162 = x156*x50
-    x163 = -x139*x156 - x140*x156 - x141*x156 + x156*x35 + x156*x38 + x156*x54 + x156*x57 + x156*x58 + x156*x61 + x156*x63 + x156*x64 + x156*x65 + x156*x68 + x156*x75 + x156*x77 - x156*x78 - x156*x79 - x156*x80 + x157*x69 + x157 + x158 + x159 + x160 + x161 + x162
-    x164 = (1.0/(x163))
-    x165 = x100 + x135 + 2*x30 + x34 + x37 + x39 + x42 + x49 + x53 + x92 + 2*x94
-    x166 = x164*x165
-    x167 = m_2**3
-    x168 = l_2**2
-    x169 = x168*x36
-    x170 = m_b*x169
-    x171 = x167*x170
-    x172 = m_2*x168
-    x173 = x168*x29
-    x174 = m_1*x173
-    x175 = x174*x66
-    x176 = x168*x23
-    x177 = x176*x34
-    x178 = x168*x33
-    x179 = 2*m_1
-    x180 = x168*x179
-    x181 = x167*x20
-    x182 = m_1*x169
-    x183 = m_b*x181
-    x184 = m_b*x167*x168
-    x185 = m_1*x168
-    x186 = 2*x176
-    x187 = -x12*x177 - x128*x184*x19 - x141*x185 - 2*x153*x168*x24 - x170*x181 + x171 + x172*x35 + x172*x38 + x172*x40 + x172*x43 + x172*x57 + x172*x58 + x172*x64 + x172*x65 + x173*x183 + x174*x181 + x175 + x177 + x178*x49 - x178*x62 + x180*x50 + x180*x68 + x181*x182 + x186*x73 + x186*x76
-    x188 = (1.0/(x187))
-    x189 = m_b*x21
-    x190 = x13*x74
-    x191 = x20*x21
-    x192 = m_1*x33 + 3*m_1*x59 + 3*m_2*x191 + x181 + x189*x20 + x189 + x190*x20 + x190 + x56 + x66 + x67 + x81
-    x193 = x188*x192
-    x194 = x5*x87
-    x195 = m_2*x194
-    x196 = x1*x195 + x3*x9
-    x197 = x12*x2
-    x198 = x128*x197
-    x199 = x128*x2
-    x200 = x2*x69
-    x201 = x23*x6
-    x202 = x201*x25*x29
-    x203 = x71*x98
-    x204 = x128*x197*x23
-    x205 = 2*x2
-    x206 = x0*x205*x59
-    x207 = x101*x6 - x135*x25*x6 + 2*x17*x197 - x17*x200 + x198*x26 - x199*x20*x26 - x202 + x203 + x204 - x206 - x71*x93 + x71*x95
-    x208 = x134*x143
-    x209 = x121*x23
-    x210 = x0*x209
-    x211 = x121*x26
-    x212 = x121*x17
-    x213 = x49*x6 + x6*x94
-    x214 = x0*x211 + x100*x6 + x210 + x212 + x213 + x30*x6 + x39*x6 + x42*x6 + x52*x6 + x6*x92
-    x215 = x132*x91
-    x216 = m_2*x1*x89
-    x217 = x216*x87 + x7*x90
-    x218 = -f_1_x*x7 - f_1_y*x87 - f_2_x*x7 - f_2_y*x87 + g*l_1*m_1*x10 + g*l_1*m_2*x10 - x217
-    x219 = x13*x2
-    x220 = x16*x2
-    x221 = x21*x82
-    x222 = x10*x221
-    x223 = x0*x201
-    x224 = x10*x223
-    x225 = x26*x82
-    x226 = 4*x10
-    x227 = -x13*x197 - x16*x197 + x191*x2 + x2*x59 + x200*x26
-    x228 = 2*m_1*m_2*x12*x2 + x12*x2*x21 + x12*x2*x23 - x136*x71 - x20*x219 - x20*x220 - 2*x222 - 2*x224 - x225*x226 - x227 - x72
-    x229 = x11*x85
-    x230 = -m_1*x194 - x195
-    x231 = x25*x6
-    x232 = x231*x55
-    x233 = x232*x36
-    x234 = x232*x29
-    x235 = x12*x149
-    x236 = m_1*x203
-    x237 = m_1*x202
-    x238 = x128*x3
-    x239 = x238*x67
-    x240 = m_2*x6
-    x241 = 4*x240
-    x242 = x241*x97
-    x243 = x241*x96
-    x244 = x146*x15
-    x245 = x14*x4*x69
-    x246 = x226*x6
-    x247 = x12*x147
-    x248 = x20*x81
-    x249 = x238*x248
-    x250 = x231*x66
-    x251 = x250*x29
-    x252 = l_2*x251 + x231*x46 - x231*x48 - x231*x51 - x247 + x249
-    x253 = l_2*x233 + l_2*x234 + l_2*x236 + l_2*x237 + l_2*x242 + l_2*x243 + x231*x41 + x231*x44 - x235 + x239 - x244 + x245 + x246*x32 + x252
-    x254 = x28/x84**2
-    x255 = x11*x254
-    x256 = x25*x7
-    x257 = x256*x55
-    x258 = x257*x36
-    x259 = x257*x29
-    x260 = x198*x66
-    x261 = x179*x7*x98
-    x262 = x256*x29
-    x263 = m_1*x23*x262
-    x264 = x199*x67
-    x265 = 4*x97
-    x266 = m_2*x7
-    x267 = x265*x266
-    x268 = 4*x96
-    x269 = x266*x268
-    x270 = x120*x197
-    x271 = x120*x2*x20
-    x272 = x226*x31
-    x273 = x198*x81
-    x274 = x199*x248
-    x275 = x262*x66
-    x276 = -l_1*x273 + l_1*x274 + x256*x45 - x256*x47 - x256*x50 + x275
-    x277 = -l_1*x260 + l_1*x264 - l_1*x270 + l_1*x271 + x256*x40 + x256*x43 + x258 + x259 + x261 + x263 + x267 + x269 + x272*x7 + x276
-    x278 = x103/x131**2
-    x279 = x278*x91
-    x280 = x231*x45 - x231*x47 - x231*x50 + x251 - x273 + x274
-    x281 = x134*x138/x142**2
-    x282 = x136*x6 + x219 + x220 + x222 + x224 + x225*x25 + x227 + x6*x70
-    x283 = m_1*m_2*x29*x6 + m_2*m_b*x29*x6 - x128*x211 - 2*x210 - 2*x212 - x213 + x23*x29*x6 - x6*x99
-    x284 = -f_2_x*x3 - f_2_y*x1 + g*l_2*m_2*x0 - x196
-    x285 = x0*x67
-    x286 = 4*x285*x3
-    x287 = x14*x20
-    x288 = 4*x287*x4
-    x289 = 2*l_2*m_1*m_2*m_b*x0*x2 + 2*l_2*m_1*m_2*m_b*x10*x36*x6 + 2*l_2*m_b*x0*x2*x23 - x231*x32 - x252 - x286 - x288
-    x290 = 4*x2
-    x291 = x285*x290
-    x292 = m_2*x287*x290
-    x293 = 2*l_1*m_1*m_2*m_b*x0*x2 + 2*l_1*m_1*m_2*m_b*x10*x36*x6 + 2*l_1*m_b*x0*x2*x23 - l_1*x291 - l_1*x292 - x256*x31 - x276
-    x294 = x146*x87
-    x295 = th_1_v*x7
-    x296 = x295*x74
-    x297 = th_1_v*x294 - x1*x296
-    x298 = x179*x295 + x296
-    x299 = 2*l_1*l_2*m_2*th_2_v*x0*x6 - th_2_v*x294
-    x300 = th_2_v*x146
-    x301 = x132*x134
-    x302 = x152*x2
-    x303 = x10*x219
-    x304 = x14*x6
-    x305 = x10*x220
-    x306 = x17*x6
-    x307 = x33*x82
-    x308 = x121*x21 + x209 + 2*x211 + x302 + 2*x303 - x304 + 2*x305 - x306 - x307
-    x309 = x11*x151
-    x310 = x134*x278
-    x311 = -l_1*x247 + l_1*x249 + l_2*x275 + x256*x46 - x256*x48 - x256*x51
-    x312 = -l_1*x235 + l_1*x239 - l_1*x244 + l_1*x245 + l_2*x258 + l_2*x259 + l_2*x261 + l_2*x263 + l_2*x267 + l_2*x269 + x226*x32*x7 + x256*x41 + x256*x44 + x311
-    x313 = x154/x150**2
-    x314 = x11*x313
-    x315 = x156*x251 - x156*x273 + x156*x274 + x160*x231 - x161*x231 - x162*x231
-    x316 = x165*x91/x163**2
-    x317 = x221 + x223 + 2*x26*x82 - x302 - x303 + 2*x304 - x305 + 2*x306 + x307
-    x318 = 2*l_1*l_2*m_1*m_2*m_b*x0*x2 + 2*l_1*l_2*m_1*m_2*m_b*x10*x36*x6 + 2*l_1*l_2*m_b*x0*x2*x23 - l_1*x286 - l_1*x288 - x256*x32 - x311
-    x319 = x151*x91
-    x320 = x134*x85
-    x321 = x167*x231
-    x322 = 6*x10
-    x323 = x134*x254
-    x324 = x313*x91
-    x325 = x10*x6*x74
-    x326 = x325*x55
-    x327 = x168*x201
-    x328 = x168*x325
-    x329 = m_b*x173*x321 - x171*x231 - x178*x203 - x178*x204 + x178*x206 + x25*x327*x34
-    x330 = x11*x192/x187**2
-    qdd_0 = x11*x86 + x133*x91 + x134*x144
-    qdd_1 = x11*x155 + x133*x134 + x166*x91
-    qdd_2 = x11*x193 + x134*x86 + x155*x91
+    x0 = (1.0/(m_1 + m_2 + m_b))
+    x1 = jnp.sin(th_1)
+    x2 = l_1*x1
+    x3 = m_1*x2
+    x4 = m_2*x2
+    x5 = -x3 - x4
+    x6 = x1**2
+    x7 = l_1**2
+    x8 = m_1*x7
+    x9 = jnp.cos(th_1)
+    x10 = x9**2
+    x11 = m_2*x7
+    x12 = x0*x5**2
+    x13 = x10*x11 + x10*x8 + x11*x6 - x12 + x6*x8
+    x14 = (1.0/(x13))
+    x15 = jnp.sin(th_2)
+    x16 = l_2*x15
+    x17 = x16*x4
+    x18 = jnp.cos(th_2)
+    x19 = l_2*x18
+    x20 = l_1*x9
+    x21 = m_2*x20
+    x22 = x19*x21
+    x23 = x0*x5
+    x24 = m_2*x16
+    x25 = x17 + x22 + x23*x24
+    x26 = l_2**2
+    x27 = x15**2
+    x28 = m_2**2*x0*x26
+    x29 = x27*x28
+    x30 = x25**2
+    x31 = m_2*x18**2*x26 + m_2*x26*x27 - x14*x30 - x29
+    x32 = (1.0/(x31))
+    x33 = m_2*x19
+    x34 = th_1_v**2
+    x35 = x21*x34
+    x36 = m_1*x20
+    x37 = th_2_v**2
+    x38 = f_1_x + f_2_x + f_b_x + u + x33*x37 + x34*x36 + x35
+    x39 = x19*x4
+    x40 = f_1_x*x2 - f_1_y*l_1*x9 + f_2_x*x2 - f_2_y*l_1*x9 + g*x21 + g*x36 - l_1*l_2*m_2*x15*x37*x9 + x23*x38 + x37*x39
+    x41 = -x40
+    x42 = x14*x25
+    x43 = -f_2_x*x16 + f_2_y*l_2*x18 - g*x33 + l_1*l_2*m_2*x1*x18*x34 + l_2*m_2*x0*x15*x38 - x16*x35 - x41*x42
+    x44 = x32*x43
+    x45 = -x25*x44 - x40
+    x46 = x14*x45
+    x47 = -x21 - x36
+    x48 = x34*x4
+    x49 = x3*x34 + x48
+    x50 = -x49
+    x51 = x17*x37 + x22*x37
+    x52 = f_1_x*x20 + f_1_y*x2 + f_2_x*x20 + f_2_y*x2 - g*l_1*m_1*x1 - g*l_1*m_2*x1 + x0*x38*x47 + x23*x50 + x51
+    x53 = x16*x21
+    x54 = x0*x24
+    x55 = x47*x54
+    x56 = -x39 + x53 + x55
+    x57 = x14*x41
+    x58 = 2*x36
+    x59 = 2*x21
+    x60 = (-x58 - x59)/x13**2
+    x61 = x23*x60
+    x62 = x16*x48 + x19*x35
+    x63 = -x25*x41*x61 + x42*x52 + x50*x54 - x56*x57 + x62
+    x64 = x32*x63
+    x65 = 2*x39
+    x66 = x16*x59
+    x67 = x30*x61 + x42*(2*x55 - x65 + x66)
+    x68 = (1.0/(x31**2))
+    x69 = x43*x68
+    x70 = x67*x69
+    x71 = x14*(-x25*x64 - x25*x70 - x44*x56 - x52)
+    x72 = x24*x37
+    x73 = x15*x18*x28
+    x74 = x23*x33
+    x75 = x69*(x42*(x65 - x66 + 2*x74) + 2*x73)
+    x76 = x23*x72 + x51
+    x77 = x39 - x53 + x74
+    x78 = x32*(-f_2_x*x19 - f_2_y*x16 + g*l_2*m_2*x15 + l_2*m_2*x0*x18*x38 - x29*x37 - x42*x76 - x57*x77 - x62)
+    x79 = x14*(-x25*x75 - x25*x78 - x44*x77 + x76)
+    x80 = th_1_v*x59
+    x81 = th_1_v*x58 + x80
+    x82 = x23*x81
+    x83 = x32*(th_1_v*x65 - x16*x80 + x42*x82 + x54*x81)
+    x84 = x14*(-x25*x83 - x82)
+    x85 = 2*th_2_v
+    x86 = -2*l_1*l_2*m_2*th_2_v*x15*x9 + x39*x85 + x74*x85
+    x87 = x32*(x42*x86 + x73*x85)
+    x88 = x14*(-x25*x87 - x86)
+    x89 = x32*(x23*x42 + x54)
+    x90 = x14*(-x23 - x25*x89)
+    qdd_0 = x0*(x24*x44 + x38 - x46*x5)
+    qdd_1 = x46
+    qdd_2 = x44
     dq0_x0 = 0
-    dq0_x1 = x133*x218 + x144*x230 + x196*x86 + x207*x208 + x214*x215 + x228*x229 + x253*x255 + x277*x279 + x281*(x231*x40 + x231*x43 + x233 + x234 + x236 + x237 + x242 + x243 - x260 + x264 - x270 + x271 + x272*x6 + x280)
-    dq0_x2 = x133*x217 - x144*x216 - x207*x208 + x215*x283 + x229*x282 + x255*x289 + x279*x293 + x281*(2*m_1*m_2*m_b*x0*x2 + 2*m_1*m_2*m_b*x10*x36*x6 + 2*m_b*x0*x2*x23 - x231*x31 - x280 - x291 - x292) + x284*x86
+    dq0_x1 = x0*(l_2*m_2*x15*x32*x63 + l_2*m_2*x15*x43*x67*x68 - x12*x45*x60 - x46*x47 - x49 - x5*x71)
+    dq0_x2 = x0*(x24*x75 + x24*x78 + x33*x44 - x5*x79 - x72)
     dq0_x3 = 0
-    dq0_x4 = x144*x298 + x297*x86
-    dq0_x5 = x133*x299 + x144*x300
-    dq0_u = x144
+    dq0_x4 = x0*(x24*x83 - x5*x84 + x81)
+    dq0_x5 = x0*(x24*x87 + x33*x85 - x5*x88)
+    dq0_u = x0*(x24*x89 - x5*x90 + 1)
     dq1_x0 = 0
-    dq1_x1 = x133*x230 + x155*x196 + x166*x218 + x214*x301 + x277*x310 + x308*x309 + x312*x314 + x316*(x156*x233 + x156*x234 + x156*x236 + x156*x237 + x156*x242 + x156*x243 - x156*x260 + x156*x264 - x156*x270 + x156*x271 + x157*x246 + x158*x231 + x159*x231 + x315)
-    dq1_x2 = -x133*x216 + x155*x284 + x164*x91*(-x17*x205 - x199*x23 - x199*x26) + x166*x217 + x283*x301 + x293*x310 + x309*x317 + x314*x318 + x316*(2*m_1*m_2*m_b*x0*x156*x2 + 2*m_1*m_2*m_b*x10*x156*x36*x6 + 2*m_b*x0*x156*x2*x23 - x156*x291 - x156*x292 - x157*x231 - x315)
+    dq1_x1 = x45*x61 + x71
+    dq1_x2 = x79
     dq1_x3 = 0
-    dq1_x4 = x133*x298 + x155*x297
-    dq1_x5 = x133*x300 + x166*x299
-    dq1_u = x133
+    dq1_x4 = x84
+    dq1_x5 = x88
+    dq1_u = x90
     dq2_x0 = 0
-    dq2_x1 = x11*x188*(-m_1*x201*x322 - x13*x226*x240 - x189*x231 - x21*x240*x322 - x232 - x250 - x321) + x155*x218 + x193*x196 + x228*x320 + x230*x86 + x253*x323 + x308*x319 + x312*x324 + x330*(x168*x183*x199 + x169*x326 + x173*x326 + x174*x321 + x175*x246 + x182*x321 - x184*x198 - x185*x260 + x185*x264 + x265*x327 + x268*x327 + x328*x40 + x328*x43 + x329)
-    dq2_x2 = x155*x217 + x193*x284 - x216*x86 + x282*x320 + x289*x323 + x317*x319 + x318*x324 + x330*(2*m_1*m_b*x0*x168*x2*x23 + 2*m_1*m_b*x10*x168*x23*x36*x6 + 2*m_b*x0*x167*x168*x2 - x0*x168*x183*x290 - x175*x231 - x185*x291 - x329)
+    dq2_x1 = x64 + x70
+    dq2_x2 = x75 + x78
     dq2_x3 = 0
-    dq2_x4 = x193*x297 + x298*x86
-    dq2_x5 = x155*x299 + x300*x86
-    dq2_u = x86
+    dq2_x4 = x83
+    dq2_x5 = x87
+    dq2_u = x89
     x_dot = (b_v, th_1_v, th_2_v, qdd_0, qdd_1, qdd_2)
     J_x = (
         (0.0, 0.0, 0.0, 1.0, 0.0, 0.0),

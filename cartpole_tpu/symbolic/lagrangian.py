@@ -190,7 +190,10 @@ def derive_double_cartpole() -> SymbolicModel:
     Q[0] += u
 
     M, f = _euler_lagrange(sym, L, sym.S.Zero, q, qd, qdd, Q)
-    qdd_sol = M.inv() * f
+    # LUsolve, as for the triple: M.inv() expands the adjugate over the
+    # full determinant, and XLA:GPU compiled that form's Jacobian into a
+    # closed loop ~200x slower per tick and ~5x slower to compile.
+    qdd_sol = M.LUsolve(f)
 
     return SymbolicModel(
         qdd_exprs=list(qdd_sol),

@@ -4,9 +4,6 @@
   that ``bench.py``, the CLI, ``chip_smoke.py`` and the scripts use.
 - :func:`device_record`: the ``platform`` / ``device_kind`` / device count
   that every result line names, so no number is read without its device.
-- :data:`PEAKS` / :func:`peaks_for`: published device peaks, keyed by
-  ``device_kind``, that roofline shares are taken against. A device that is
-  not in the table is an error, never a default.
 """
 
 from __future__ import annotations
@@ -19,10 +16,8 @@ import jax
 
 __all__ = [
     "DEFAULT_CACHE_DIR",
-    "PEAKS",
     "device_record",
     "enable_compile_cache",
-    "peaks_for",
 ]
 
 #: Cache directory used when ``JAX_COMPILATION_CACHE_DIR`` is unset: a fixed
@@ -55,27 +50,3 @@ def device_record(devices: Optional[Sequence] = None) -> Dict[str, object]:
         "device_count": len(devs),
     }
 
-
-#: Published peaks of one device, by ``device_kind``. Source for the H100:
-#: NVIDIA H100 data sheet, SXM part, dense rates without sparsity, at the
-#: full 700 W power limit (a card set below it cannot hold its top clock).
-PEAKS: Dict[str, Dict[str, float]] = {
-    "NVIDIA H100 80GB HBM3": {
-        "hbm_bytes_per_s": 3.35e12,
-        "f32_flops_per_s": 67e12,
-        "tf32_flops_per_s": 495e12,
-        "bf16_flops_per_s": 989e12,
-    },
-}
-
-
-def peaks_for(device_kind: str) -> Dict[str, float]:
-    """Published peaks for ``device_kind``; ``ValueError`` if the table
-    does not have it."""
-    try:
-        return PEAKS[device_kind]
-    except KeyError:
-        raise ValueError(
-            f"no published peaks for device kind {device_kind!r}; add it "
-            "to cartpole_tpu.utils.device.PEAKS with its source"
-        ) from None

@@ -25,7 +25,7 @@ checks what comes out against the repo's plain references:
 
 ``--four`` runs only the scenario-sharded path (``make_sharded_closed_loop``,
 ``layout="lanes"``) over four GPUs at 4 x 4096 scenarios and the same batch
-on one GPU, and compares the two.
+on one GPU, in f64, and compares the two.
 
 Everything runs in this one process (a JAX process reserves most of a
 card's memory). The last line of standard output is one JSON object,
@@ -66,23 +66,29 @@ UPRIGHT_BAR = 0.99
 #: every line-search decision far from a tie (large merit decreases), so
 #: round-off cannot flip one.
 TOL_F64_DEVICES = 1e-8
-#: (b) f32 GPU vs f64 lu reference on upright warm-started states: the
-#: f32 condensed linear step tracks f64 to ~1e-3 relative; 10x margin. A
-#: TF32 product (~1e-3 per product, amplified by the KKT conditioning)
-#: lands far above it.
-TOL_F32_VS_F64 = 1e-2
+#: (b) f32 GPU vs f64 lu reference on upright warm-started states: f32
+#: round-off of the elementwise rollout and condensation chain. Two runs
+#: on H100s read 4.6e-5 and 5.1e-5 (the 300-tick loop reaches slightly
+#: other states when the GEMMs sum in another order); 10x margin. This
+#: check does not see the matmul precision: with the solver's scopes set
+#: to tensorfloat32, bfloat16 or default the reading moved by under 1%.
+#: The guard against TF32 is (c).
+TOL_F32_VS_F64 = 5e-4
 #: (b) runs the CPU f64 reference on this many instances.
 N_REFERENCE = 256
-#: --four: sharded vs one-card f32 over a short loop. Both run the same
-#: per-instance arithmetic, but the two programs may pick different GEMM
-#: algorithms (other batch widths), so round-off differs and grows a
-#: little per tick.
+#: --four: sharded vs one-card over a short cold-start loop, in f64. Both
+#: run the same per-instance arithmetic, but the two programs have other
+#: batch widths per card, so their GEMMs may sum in another order. In f32
+#: that round-off flips line-search decisions of the swing-up from hang
+#: (on H100s: 3.4% of termination codes flipped and controls differed by
+#: 1.5 after 10 ticks), which says nothing about the sharding. In f64 no
+#: termination code flips and the health counts must be equal; what
+#: round-off can still move is the iteration at which a solve meets its
+#: relative exit test (``relative_exit_tol`` 1e-5), so controls and
+#: states may differ by about that much: 10x margin.
 FOUR_TICKS = 10
-TOL_FOUR_CONTROLS = 1e-3
-TOL_FOUR_STATES = 1e-3
-#: --four: share of solves whose termination code may flip between the
-#: two runs (a round-off-level change can cross a convergence test).
-TOL_FOUR_TERM_FLIPS = 1e-3
+TOL_FOUR_CONTROLS = 1e-4
+TOL_FOUR_STATES = 1e-4
 
 
 def scaled_error(got, want) -> float:
@@ -362,11 +368,12 @@ def phase_four(card: str, records: list):
     devs = devs[:4]
     n = 4 * BATCH
     print(f"[four] sharded lanes closed loop over 4 GPUs, {n} scenarios, "
-          f"{FOUR_TICKS} ticks, vs the same batch on one GPU", flush=True)
+          f"{FOUR_TICKS} ticks, f64, vs the same batch on one GPU",
+          flush=True)
     mpc = _single_mpc()
-    dp = _params("single", jnp.float32)
-    x0s = make_x0s("single", n, jnp.float32)
-    sps = jnp.zeros((n,), jnp.float32)
+    dp = _params("single", jnp.float64)
+    x0s = make_x0s("single", n, jnp.float64)
+    sps = jnp.zeros((n,), jnp.float64)
 
     mesh = make_scenario_mesh(devs)
     sharded = make_sharded_closed_loop(mpc, mesh, num_steps=FOUR_TICKS,
@@ -376,10 +383,14 @@ def phase_four(card: str, records: list):
         mpc, x, d, FOUR_TICKS, s))
     args_one = jax.device_put((x0s, dp, sps), devs[0])
 
+    def compile_x64(f, a):
+        with jax.enable_x64(True):  # thread-local: the caller's does not reach
+            return f.lower(*a).compile()
+
     # The two programs compile concurrently (XLA compiles off the GIL).
     t0 = time.perf_counter()
     with ThreadPoolExecutor(2) as pool:
-        futs = [pool.submit(lambda f=f, a=a: f.lower(*a).compile())
+        futs = [pool.submit(compile_x64, f, a)
                 for f, a in ((sharded, args_sh), (one, args_one))]
         sharded_c, one_c = (f.result() for f in futs)
     print(f"  compile_s (both programs, concurrently) "
@@ -405,17 +416,16 @@ def phase_four(card: str, records: list):
     term_one = np.asarray(res_one.termination_states)
     hist_one = np.bincount(term_one.reshape(-1), minlength=5)
     hist_sh = np.asarray(diag.termination_counts)
-    flips = float(np.mean(np.asarray(res_sh.termination_states) != term_one))
+    flips = int(np.sum(np.asarray(res_sh.termination_states) != term_one))
     print(f"  n_instances {int(diag.n_instances)} vs {n}; n_failed "
           f"{int(diag.n_failed)} vs {_n_failed(term_one)}")
     print(f"  termination histogram sharded {hist_sh.tolist()} vs one card "
-          f"{hist_one.tolist()}; flipped share {flips!r} "
-          f"(tol {TOL_FOUR_TERM_FLIPS})", flush=True)
+          f"{hist_one.tolist()}; flipped codes {flips}", flush=True)
     records.append({"check": "four health",
                     "ok": (int(diag.n_instances) == n
                            and int(diag.n_failed) == _n_failed(term_one) == 0
-                           and int(hist_sh.sum()) == int(hist_one.sum())
-                           and flips <= TOL_FOUR_TERM_FLIPS)})
+                           and hist_sh.tolist() == hist_one.tolist()
+                           and flips == 0)})
 
 
 def main(argv=None) -> int:
@@ -446,7 +456,8 @@ def main(argv=None) -> int:
 
     records: list = []
     if args.four:
-        phase_four(card, records)
+        with jax.enable_x64(True):
+            phase_four(card, records)
     else:
         mpc, cold, steady, upright_mask = phase_single(card, records)
         phase_compare(mpc, cold, steady, upright_mask, records)

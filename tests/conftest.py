@@ -6,10 +6,12 @@ SURVEY.md §4. The platform is pinned here, before any backend starts, so a
 test run behaves the same with or without ``JAX_PLATFORMS=cpu`` in the
 environment.
 
-Tests that need an NVIDIA GPU carry the ``gpu`` marker and take the
-``gpu_card`` fixture, which skips them on a machine without one; on a GPU
-machine run them with ``python -m pytest tests/ -m gpu``. They drive the
-card from a child process, so this process stays on the CPU.
+Tests that need an NVIDIA GPU carry the ``gpu`` marker and run only when
+asked for with ``-m gpu`` (``python -m pytest tests/ -m gpu``): they drive
+the whole smoke run on the card, far longer than the rest of the suite.
+Their ``gpu_card`` fixture then skips them on a machine without a card.
+They drive the card from a child process, so this process stays on the
+CPU.
 """
 
 import os
@@ -53,8 +55,8 @@ def pytest_configure(config):
     )
     config.addinivalue_line(
         "markers",
-        "gpu: needs an NVIDIA GPU (takes the gpu_card fixture; skips "
-        "without one)",
+        "gpu: needs an NVIDIA GPU; runs only under -m gpu (takes the "
+        "gpu_card fixture; skips without a card)",
     )
 
 
@@ -73,10 +75,19 @@ def gpu_card():
     return lines[0]
 
 
+def gpu_tests_requested(markexpr: str) -> bool:
+    """Whether the ``-m`` expression asks for the ``gpu`` tests."""
+    return "gpu" in markexpr and "not gpu" not in markexpr
+
+
 def pytest_collection_modifyitems(config, items):
-    if os.environ.get("CARTPOLE_SLOW_TESTS"):
-        return
-    skip = pytest.mark.skip(reason="slow; set CARTPOLE_SLOW_TESTS=1 to run")
+    slow = not os.environ.get("CARTPOLE_SLOW_TESTS")
+    gpu = not gpu_tests_requested(config.option.markexpr or "")
+    skip_slow = pytest.mark.skip(
+        reason="slow; set CARTPOLE_SLOW_TESTS=1 to run")
+    skip_gpu = pytest.mark.skip(reason="gpu; run with -m gpu on a GPU machine")
     for item in items:
-        if "slow" in item.keywords:
-            item.add_marker(skip)
+        if slow and "slow" in item.keywords:
+            item.add_marker(skip_slow)
+        if gpu and "gpu" in item.keywords:
+            item.add_marker(skip_gpu)

@@ -91,3 +91,18 @@ def test_smoke_run_on_the_card(gpu_card):
     assert res.returncode == 0, (gpu_card, res.stderr[-4000:])
     last = json.loads(res.stdout.strip().splitlines()[-1])
     assert last["ok"] is True and last["device"]["platform"] == "gpu"
+
+
+@pytest.mark.parametrize("markexpr,want", [
+    ("", False),
+    ("not slow", False),
+    ("gpu", True),
+    ("gpu and not slow", True),
+    ("not gpu", False),
+])
+def test_gpu_tests_run_only_when_asked_for(markexpr, want):
+    """The smoke run on the card is far longer than the CPU suite, so a
+    plain run skips it even on a GPU machine."""
+    from conftest import gpu_tests_requested
+
+    assert gpu_tests_requested(markexpr) is want

@@ -1,5 +1,5 @@
-"""Device facts the entry points share: compile cache, device record,
-published peaks (``cartpole_tpu/utils/device.py``)."""
+"""Device facts the entry points share: compile cache and device record
+(``cartpole_tpu/utils/device.py``)."""
 
 import jax
 import pytest
@@ -42,16 +42,3 @@ def test_device_record_names_the_cpu_mesh():
                    "device_count": 8}
     assert device.device_record(jax.devices()[:1])["device_count"] == 1
 
-
-def test_peaks_h100_entry():
-    peaks = device.peaks_for("NVIDIA H100 80GB HBM3")
-    assert peaks["hbm_bytes_per_s"] == 3.35e12
-    assert peaks["bf16_flops_per_s"] == 989e12
-    assert peaks["tf32_flops_per_s"] == 495e12
-    assert peaks["f32_flops_per_s"] == 67e12
-
-
-@pytest.mark.parametrize("kind", ["cpu", "NVIDIA A100-SXM4-80GB", ""])
-def test_peaks_unknown_device_is_an_error(kind):
-    with pytest.raises(ValueError, match="no published peaks"):
-        device.peaks_for(kind)
